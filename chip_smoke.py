@@ -16,10 +16,22 @@ Phases (any failure raises, so the exit code is non-zero):
    against the same call on the CPU (plain versions);
 5. drive: bench.py's synthetic stereo drive (640x480, 1000 features, 8
    levels, 100 frames) through FrameFactory.build_stereo + the synchronous
-   Tracker, gated at ATE < 0.15 m, with the kernel's launch count.
+   Tracker, gated at ATE < 0.15 m, with the kernel's launch count;
+6. mapping drive: the same frames through the Tracker with a
+   LocalMapper(run_ba=True, cull_keyframes=True): stereo SLAM with
+   triangulation, fuse, dense local BA and keyframe culling after every
+   keyframe; gated at 100/100 OK, >= 1 local BA and ATE < 0.15 m;
+7. capacity drive: tools/capacity_drive.py's KITTI-00-scale configuration
+   (1241x376, 2000 features, 2048 keypoint slots, 1536 keyframes, 262,144
+   map points, a 120,000-landmark SyntheticWorld corridor, 0.8 m and
+   0.001 rad a frame, 150 pre-rendered keypoint frames) through the Tracker
+   with LocalMapper(run_ba=True, cull_keyframes=True, full_every=4); gated
+   at 0 lost frames and ATE < 0.5 m.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+Each drive sets the kernel's launch counter to 0 just before it and reads
+it just after. The line before the last is a JSON object describing each
+kernel (launches summed over the drives); the last line is
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,6 +48,8 @@ N_FRAMES = 100
 WARMUP = 8
 ATE_GATE = 0.15
 FAST_THRESHOLD = 7.0
+CAPACITY_FRAMES = 150
+CAPACITY_ATE_GATE = 0.5
 
 
 def _cuda_ms(fn, n: int = 20, repeats: int = 5, warmup: int = 3) -> float:
@@ -66,6 +80,147 @@ def _kp_set(kps, level=None):
     return set(map(tuple, np.c_[uvl[keep], octv[keep]].tolist()))
 
 
+def _timed_mapper(cfg, **kw):
+    """A LocalMapper that records the host time of each `process` call,
+    between two device synchronizations (ms)."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.models.local_mapping import LocalMapper
+
+    class TimedMapper(LocalMapper):
+        def __init__(self):
+            super().__init__(cfg, **kw)
+            self.ms = []
+
+        def process(self, state, kf_id, queue_pressure=False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = super().process(state, kf_id, queue_pressure)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return state
+
+    return TimedMapper()
+
+
+def _ate(tracker, poses, n_frames):
+    from my_orb_slam2_tpu_torch.utils.synthetic import ate_rmse
+
+    traj = {fid: T for fid, _, T, lost in tracker.trajectory_poses() if not lost}
+    est = np.stack([traj[i] for i in range(n_frames) if i in traj])
+    gt = np.stack([poses[i] for i in range(n_frames) if i in traj])
+    assert np.isfinite(est).all()
+    return ate_rmse(est, gt) if len(est) > 10 else float("nan")
+
+
+def _map_summary(tracker, mapper) -> str:
+    m = tracker.map
+    st = mapper.stats
+    return (f"keyframes alive/inserted {int(m.kf_valid.sum())}/{tracker.kf_counter}, points alive {int(m.mp_valid.sum())}, "
+            f"points_created {st['points_created']}, kfs_culled {st['kfs_culled']}, ba_runs {st['ba_runs']}, "
+            f"mapper_ms {statistics.median(mapper.ms):.2f} (median per keyframe, {len(mapper.ms)} calls), "
+            f"cap_overflow {int(m.cap_overflow)}, obs_overflow {int(m.obs_overflow)}, shed_work {int(m.shed_work)}, "
+            f"keyframes refused {tracker.kf_capacity_refusals}")
+
+
+def image_drive(cfg, factory, pairs, poses, dev, mapper=None) -> dict:
+    """bench.py's drive through FrameFactory.build_stereo + the synchronous
+    Tracker (with `mapper` attached, if any). The FAST kernel's launch
+    counter is set to 0 just before the drive and read just after."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.models.tracking import Tracker, TrackingState
+    from my_orb_slam2_tpu_torch.ops import fast_nms as fk
+
+    tracker = Tracker(cfg, factory.capacity, dev, local_mapper=mapper)
+    torch.cuda.synchronize()
+    fk.fast_nms.launches = 0
+    fe_ms, tr_ms, ok_frames = [], [], 0
+    t_start = None
+    for i, (left, right) in enumerate(pairs):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        t0 = time.perf_counter()
+        frame = factory.build_stereo(left, right)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        info = tracker.track(frame, i / 30.0)  # ends in the per-frame .cpu() read
+        t2 = time.perf_counter()
+        if i >= WARMUP:
+            fe_ms.append((t1 - t0) * 1e3)
+            tr_ms.append((t2 - t1) * 1e3)
+        ok_frames += info["state"] == TrackingState.OK
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_start
+    n = len(pairs)
+    return {
+        "tracker": tracker, "ok": ok_frames, "n": n, "ate": _ate(tracker, poses, n), "launches": fk.fast_nms.launches,
+        "fps": (n - WARMUP) / elapsed, "fe_ms": statistics.median(fe_ms), "tr_ms": statistics.median(tr_ms),
+    }
+
+
+def _check_image_drive(d, name):
+    n = d["n"]
+    if d["launches"] < 2 * n:
+        raise SystemExit(f"the {name} launched the FAST+NMS kernel {d['launches']} times for {n} frames")
+    if not d["ate"] < ATE_GATE:
+        raise SystemExit(f"{name} ate_rmse_m {d['ate']} is not below {ATE_GATE}")
+
+
+def mapping_drive(cfg, factory, pairs, poses, dev, smi) -> int:
+    """Phase 6: bench.py's drive with the local mapper. Returns the FAST
+    kernel's launches in the drive."""
+    mapper = _timed_mapper(cfg, run_ba=True, cull_keyframes=True)
+    d = image_drive(cfg, factory, pairs, poses, dev, mapper)
+    n = d["n"]
+    print(f"mapping drive: {n} frames, ok {d['ok']}/{n}, ate_rmse_m {d['ate']:.4f}, fps {d['fps']:.2f} "
+          f"(frames {WARMUP}-{n - 1}, sync, mapper included), frontend_ms {d['fe_ms']:.2f}, "
+          f"track_ms {d['tr_ms']:.2f} (medians; track_ms includes the mapper on keyframes), "
+          f"{_map_summary(d['tracker'], mapper)}, fast_nms launches {d['launches']} [{smi}]")
+    if d["ok"] != n:
+        raise SystemExit(f"the mapping drive tracked {d['ok']}/{n} frames")
+    if mapper.stats["ba_runs"] < 1:
+        raise SystemExit("the mapping drive ran no local BA")
+    _check_image_drive(d, "mapping drive")
+    return d["launches"]
+
+
+def capacity_drive(cfg, dev, smi, n_frames=CAPACITY_FRAMES, n_landmarks=120000, slots=2048, full_every=4):
+    """Phase 7: the capacity drive on pre-rendered SyntheticWorld frames."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.models.tracking import Tracker, TrackingState
+    from my_orb_slam2_tpu_torch.utils.synthetic import capacity_world
+
+    world, poses = capacity_world(cfg, n_frames, n_landmarks)
+    t0 = time.perf_counter()
+    frames = [world.observe(T, slots, seed=10_000 + i, device=dev)[0] for i, T in enumerate(poses)]
+    torch.cuda.synchronize()
+    print(f"capacity drive: {n_frames} keypoint frames of {slots} slots rendered in {time.perf_counter() - t0:.1f} s "
+          f"(outside the timed window)")
+    mapper = _timed_mapper(cfg, run_ba=True, cull_keyframes=True, full_every=full_every)
+    tracker = Tracker(cfg, slots, dev, local_mapper=mapper)
+    tr_ms, lost = [], 0
+    t_start = time.perf_counter()
+    for i, frame in enumerate(frames):
+        t1 = time.perf_counter()
+        info = tracker.track(frame, i / 10.0)
+        tr_ms.append((time.perf_counter() - t1) * 1e3)
+        lost += i > 0 and info["state"] != TrackingState.OK
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_start
+    ate = _ate(tracker, poses, n_frames)
+    print(f"capacity drive: {n_frames} frames ({0.8 * n_frames:.0f} m), lost {lost}, ate_rmse_m {ate:.4f}, "
+          f"fps {n_frames / elapsed:.2f} (all frames, sync, mapper included), track_ms {statistics.median(tr_ms):.2f} "
+          f"(median), {_map_summary(tracker, mapper)}, capacity {cfg.capacity.max_keyframes} KF / "
+          f"{cfg.capacity.max_map_points} MP / {slots} slots [{smi}]")
+    if lost:
+        raise SystemExit(f"the capacity drive lost {lost} frames")
+    if not ate < CAPACITY_ATE_GATE:
+        raise SystemExit(f"capacity drive ate_rmse_m {ate} is not below {CAPACITY_ATE_GATE}")
+
+
 def main() -> int:
     import torch
 
@@ -74,9 +229,8 @@ def main() -> int:
         return 1
 
     from my_orb_slam2_tpu_torch.models.frame import FrameFactory
-    from my_orb_slam2_tpu_torch.models.tracking import Tracker, TrackingState
     from my_orb_slam2_tpu_torch.ops import fast_nms as fk
-    from my_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, bench_config, stereo_drive
+    from my_orb_slam2_tpu_torch.utils.synthetic import bench_config, capacity_config, stereo_drive
 
     # 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -143,44 +297,28 @@ def main() -> int:
         raise SystemExit("the card's front-end disagrees with the CPU reference path")
 
     # 5. drive --------------------------------------------------------------
-    tracker = Tracker(cfg, factory.capacity, dev)
-    torch.cuda.synchronize()
+    d = image_drive(cfg, factory, pairs, poses, dev)
+    tracker, launches = d["tracker"], d["launches"]
+    print(f"drive: {N_FRAMES} frames, ok {d['ok']}/{N_FRAMES}, keyframes {tracker.kf_counter}, "
+          f"ate_rmse_m {d['ate']:.4f}, fps {d['fps']:.2f} (frames {WARMUP}-{N_FRAMES - 1}, sync), "
+          f"frontend_ms {d['fe_ms']:.2f}, track_ms {d['tr_ms']:.2f} (medians), "
+          f"cap_overflow {int(tracker.map.cap_overflow)}, obs_overflow {int(tracker.map.obs_overflow)}, "
+          f"keyframes refused {tracker.kf_capacity_refusals}, fast_nms launches {launches} [{smi}]")
+    _check_image_drive(d, "drive")
+
+    # 6. mapping drive ------------------------------------------------------
+    t0 = time.perf_counter()
+    map_launches = mapping_drive(cfg, factory, pairs, poses, dev, smi)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+
+    # 7. capacity drive (no images: the FAST kernel is not on this path) ----
+    t0 = time.perf_counter()
     fk.fast_nms.launches = 0
-    fe_ms, tr_ms, ok_frames = [], [], 0
-    t_start = None
-    for i, (left, right) in enumerate(pairs):
-        if i == WARMUP:
-            torch.cuda.synchronize()
-            t_start = time.perf_counter()
-        t0 = time.perf_counter()
-        frame = factory.build_stereo(left, right)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        info = tracker.track(frame, i / 30.0)  # ends in the per-frame .cpu() read
-        t2 = time.perf_counter()
-        if i >= WARMUP:
-            fe_ms.append((t1 - t0) * 1e3)
-            tr_ms.append((t2 - t1) * 1e3)
-        ok_frames += info["state"] == TrackingState.OK
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t_start
-    launches = fk.fast_nms.launches
-    traj = {fid: T for fid, _, T, lost in tracker.trajectory_poses() if not lost}
-    est = np.stack([traj[i] for i in range(N_FRAMES) if i in traj])
-    gt = np.stack([poses[i] for i in range(N_FRAMES) if i in traj])
-    assert np.isfinite(est).all()
-    ate = ate_rmse(est, gt) if len(est) > 10 else float("nan")
-    fps = (N_FRAMES - WARMUP) / elapsed
-    cap_over, obs_over = int(tracker.map.cap_overflow), int(tracker.map.obs_overflow)
-    refused = tracker.kf_capacity_refusals
-    print(f"drive: {N_FRAMES} frames, ok {ok_frames}/{N_FRAMES}, keyframes {tracker.kf_counter}, "
-          f"ate_rmse_m {ate:.4f}, fps {fps:.2f} (frames {WARMUP}-{N_FRAMES - 1}, sync), "
-          f"frontend_ms {statistics.median(fe_ms):.2f}, track_ms {statistics.median(tr_ms):.2f} (medians), "
-          f"cap_overflow {cap_over}, obs_overflow {obs_over}, keyframes refused {refused}, fast_nms launches {launches} [{smi}]")
-    if launches < 2 * N_FRAMES:
-        raise SystemExit(f"the drive launched the FAST+NMS kernel {launches} times for {N_FRAMES} frames")
-    if not ate < ATE_GATE:
-        raise SystemExit(f"ate_rmse_m {ate} is not below {ATE_GATE}")
+    capacity_drive(capacity_config(), dev, smi)
+    cap_launches = fk.fast_nms.launches
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s; fast_nms launches by drive: phase 5 {launches}, "
+          f"phase 6 {map_launches}, phase 7 {cap_launches}")
+    launches += map_launches + cap_launches
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms",

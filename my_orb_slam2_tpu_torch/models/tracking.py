@@ -23,8 +23,10 @@ Parity with the reference, deliberately reproduced:
   negated mask, padded with MP: no data-dependent shape, no host sync.
 - `jax.lax.top_k` is a stable descending sort; `jnp.argsort` is stable.
 
-The pipelined mode, `track_motion_vo` (localization mode), relocalization
-and the local mapper are not ported yet.
+A `LocalMapper` (models/local_mapping.py) attached to the `Tracker` runs
+after every keyframe insertion, as in the reference: the tracker becomes
+stereo SLAM. The pipelined mode, `track_motion_vo` (localization mode) and
+relocalization are not ported yet.
 """
 
 from __future__ import annotations
@@ -372,8 +374,9 @@ class Tracker:
     """Host orchestration of the per-frame pipeline in synchronous mode:
     state machine, velocity model, keyframe policy and trajectory log."""
 
-    def __init__(self, cfg: SlamConfig, capacity: int, device):
+    def __init__(self, cfg: SlamConfig, capacity: int, device, local_mapper=None):
         self.cfg = cfg
+        self.local_mapper = local_mapper
         self.capacity = capacity
         self.device = torch.device(device)
         self.state = TrackingState.NOT_INITIALIZED
@@ -419,6 +422,8 @@ class Tracker:
         self._ref_pose_host = np.eye(4, dtype=np.float32)
         self.last_kf_frame_id = self.frame_id
         self.kf_counter += 1
+        if self.local_mapper is not None:
+            self.map = self.local_mapper.process(self.map, int(kf_id))
         return True
 
     def reset_motion(self, Tcw: Optional[np.ndarray] = None):
@@ -494,6 +499,10 @@ class Tracker:
         self.ref_kf = int(stats[4])
         if self._need_new_keyframe(stats, fid):
             kf_slot = self.n_kf
+            # Back-to-back keyframes: the synchronous analog of the
+            # reference's non-empty keyframe queue; the mapper sheds its
+            # optional passes under it.
+            kf_burst = (fid - self.last_kf_frame_id) <= 1 and self.kf_counter > 1
             self.map, _ = insert_keyframe_with_points(
                 self.cfg, self.map, frame, self._chain_Tcw, cur_mp, fid, float(ts),
             )
@@ -506,6 +515,8 @@ class Tracker:
             # The keyframe's assignments (with its fresh stereo points) are
             # aligned with last_frame: use them for the next motion search.
             self.last_mp = self.map.kf_mp[kf_slot].clone()
+            if self.local_mapper is not None:
+                self.map = self.local_mapper.process(self.map, kf_slot, queue_pressure=kf_burst)
         self._log_pose(ts, frame_id=fid)
         info["Tcw"] = self.Tcw.copy()
         info["state"] = self.state

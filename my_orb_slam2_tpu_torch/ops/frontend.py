@@ -358,15 +358,17 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
-    """Unpack (N, 8) int32 descriptor words to (N, 256) float32 in {-1, +1}."""
+    """Unpack (..., N, 8) int32 descriptor words to (..., N, 256) float32
+    in {-1, +1}."""
     shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
-    bits = (desc.to(torch.int32)[:, :, None] >> shifts) & 1
-    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(desc.shape[0], 256)
+    bits = (desc.to(torch.int32)[..., None] >> shifts) & 1
+    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(desc.shape[:-1] + (256,))
 
 
 def hamming_distance(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
-    """Pairwise Hamming distances (N, M) int32 between packed descriptors,
-    as (256 - s1 . s2) / 2 over {-1, +1} vectors. The f32 matmul of +-1
-    entries is exact (integers below 2^24, TF32 off)."""
-    dot = unpack_pm1(desc1) @ unpack_pm1(desc2).T
+    """Pairwise Hamming distances (..., N, M) int32 between packed
+    descriptors (leading batch dims broadcast), as (256 - s1 . s2) / 2 over
+    {-1, +1} vectors. The f32 matmul of +-1 entries is exact (integers below
+    2^24, TF32 off)."""
+    dot = unpack_pm1(desc1) @ unpack_pm1(desc2).transpose(-1, -2)
     return ((256.0 - dot) * 0.5).to(torch.int32)

@@ -1,7 +1,7 @@
 """SO(3) / SE(3) operations on torch tensors.
 
 Counterpart of my_orb_slam2_tpu/ops/lie.py, limited to what the stereo
-tracking path uses. Same conventions: an SE3 pose is a (4, 4) homogeneous
+tracking and local mapping paths use. Same conventions: an SE3 pose is a (4, 4) homogeneous
 matrix, the se3 tangent is xi = [upsilon(3), omega(3)], and updates are
 left-multiplicative, T_new = exp(xi) @ T_old. All functions are unbatched
 and keep the reference's small-angle guards, so they stay finite at 0.
@@ -141,6 +141,27 @@ def se3_exp(xi):
     R = I + _sinc(theta) * K + b * KK
     t = (I + b * K + _sin_term(theta, theta2) * KK) @ ups
     return se3_from_Rt(R, t)
+
+
+def se3_exp_batch(xi):
+    """se3_exp over a batch (..., 6) -> (..., 4, 4), where the reference
+    vmaps se3_exp; the same formula term by term."""
+    ups, omg = xi[..., :3], xi[..., 3:6]
+    theta2 = torch.sum(omg * omg, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    x, y, z = omg[..., 0], omg[..., 1], omg[..., 2]
+    zero = torch.zeros_like(x)
+    K = torch.stack(
+        [torch.stack([zero, -z, y], -1), torch.stack([z, zero, -x], -1), torch.stack([-y, x, zero], -1)], -2
+    )
+    KK = K @ K
+    I = _eye(3, xi)
+    b = _cos_term(theta, theta2)[..., None, None]
+    R = I + _sinc(theta)[..., None, None] * K + b * KK
+    t = ((I + b * K + _sin_term(theta, theta2)[..., None, None] * KK) @ ups[..., None])[..., 0]
+    bottom = torch.zeros(xi.shape[:-1] + (1, 4), dtype=xi.dtype, device=xi.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
 
 
 def se3_apply(T, p):

@@ -1,5 +1,6 @@
-"""Convert frames and map states between numpy arrays and the port's
-tensors, so the port can be put in exactly the state of the JAX package.
+"""Convert frames, map states and local-BA problems between numpy arrays
+and the port's tensors, so the port can be put in exactly the state of the
+JAX package.
 
 The JAX `FrameData` / `MapState` hold the same fields under the same names;
 `np.asarray` of each field gives the numpy side. Conversions keep the bits:
@@ -16,6 +17,7 @@ import torch
 
 from my_orb_slam2_tpu_torch.models.frame import FrameData
 from my_orb_slam2_tpu_torch.models.map_state import MapState
+from my_orb_slam2_tpu_torch.ops.ba import DenseBAProblem
 
 _DESC_FIELDS = {"desc", "mp_desc", "kf_desc"}
 
@@ -63,3 +65,21 @@ def map_state_from_numpy(state, device) -> MapState:
 def map_state_to_numpy(state: MapState) -> dict:
     """Numpy arrays in the reference's dtypes (int32, uint32 descriptors)."""
     return {n: _to_numpy(n, getattr(state, n)) for n in MapState._fields}
+
+
+def ba_problem_from_numpy(prob, device) -> DenseBAProblem:
+    """DenseBAProblem from any object (or dict) with the reference's fields."""
+    return DenseBAProblem(**{n: _to_tensor(n, v, device) for n, v in _fields(prob, DenseBAProblem._fields).items()})
+
+
+def ba_problem_to_numpy(prob: DenseBAProblem) -> dict:
+    return {n: _to_numpy(n, getattr(prob, n)) for n in DenseBAProblem._fields}
+
+
+def aux_from_numpy(aux: dict, device) -> dict:
+    """The local-BA `aux` dict (index arrays and masks)."""
+    return {n: _to_tensor(n, v, device) for n, v in aux.items()}
+
+
+def aux_to_numpy(aux: dict) -> dict:
+    return {n: _to_numpy(n, t) for n, t in aux.items()}
