@@ -26,11 +26,26 @@ Phases (any failure raises, so the exit code is non-zero):
    map points, a 120,000-landmark SyntheticWorld corridor, 0.8 m and
    0.001 rad a frame, 150 pre-rendered keypoint frames) through the Tracker
    with LocalMapper(run_ba=True, cull_keyframes=True, full_every=4); gated
-   at 0 lost frames and ATE < 0.5 m.
+   at 0 lost frames and ATE < 0.5 m;
+8. system drive: the bench frames through SlamSystem.track_stereo (local
+   mapping, the 100k-word keyframe database, loop closing; the 10k-word
+   gate vocabulary), gated at 100/100 OK, ATE < 0.15 m, the database's
+   kf_valid equal to the map's and zero overflow; then a relocalization
+   probe (tracker set LOST, frame 50's pair fed), gated at OK with a
+   camera-centre error < 0.2 m;
+9. loop drive: tools/loop_drive.py's configuration (KITTI 00 intrinsics,
+   2048 keypoint slots, 2048 keyframes, 262,144 map points, a
+   120,000-landmark ring, 0.4 m a frame, LOOP_FRAMES pre-rendered keypoint
+   frames: a 216 m lap plus a 60-frame revisit) through
+   SlamSystem.track_frame_data with full_every = 4, gated at 0 lost,
+   >= 1 loop closed, >= 1 global BA applied and ATE < 0.5 m.
 
 Each drive sets the kernel's launch counter to 0 just before it and reads
-it just after. The line before the last is a JSON object describing each
-kernel (launches summed over the drives); the last line is
+it just after. Phases 8 and 9 time the relocalization, the loop closure
+(detection resolve -> Sim3 -> correction) and each GBA tick between device
+synchronizations, and count the host syncs of a loop closure with
+torch.cuda.set_sync_debug_mode. The line before the last is a JSON object
+describing each kernel (launches summed over the drives); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -50,6 +65,10 @@ ATE_GATE = 0.15
 FAST_THRESHOLD = 7.0
 CAPACITY_FRAMES = 150
 CAPACITY_ATE_GATE = 0.5
+RELOC_FRAME = 50
+RELOC_GATE = 0.2
+LOOP_FRAMES = 600
+LOOP_ATE_GATE = 0.5
 
 
 def _cuda_ms(fn, n: int = 20, repeats: int = 5, warmup: int = 3) -> float:
@@ -221,6 +240,196 @@ def capacity_drive(cfg, dev, smi, n_frames=CAPACITY_FRAMES, n_landmarks=120000, 
         raise SystemExit(f"capacity drive ate_rmse_m {ate} is not below {CAPACITY_ATE_GATE}")
 
 
+class _Probe:
+    """Host-time spans (ms, between device synchronizations) and host-sync
+    counts (torch.cuda.set_sync_debug_mode warnings) of wrapped calls."""
+
+    def __init__(self):
+        self.spans = {}
+        self.accrued = {}  # key -> the map's overflow counters added inside the calls
+
+    def wrap(self, obj, name, key, count_syncs=False, when=None):
+        import warnings
+
+        import torch
+
+        orig = getattr(obj, name)
+
+        def timed(*a, **k):
+            if when is not None and not when():
+                return orig(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                if count_syncs:
+                    torch.cuda.set_sync_debug_mode(1)
+                try:
+                    out = orig(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            # Keep only the returned flag (closed / applied): a kept map
+            # state would pin its tensors on the card.
+            flag = out[1] if isinstance(out, tuple) and isinstance(out[1], bool) else None
+            self.spans.setdefault(key, []).append(((time.perf_counter() - t0) * 1e3, syncs, flag))
+            if flag is not None and a and hasattr(a[0], "cap_overflow"):
+                # Outside the timed span: what the call added to the counters.
+                acc = self.accrued.setdefault(key, dict.fromkeys(_COUNTERS, 0))
+                for c in _COUNTERS:
+                    acc[c] += int(getattr(out[0], c)) - int(getattr(a[0], c))
+            return out
+
+        setattr(obj, name, timed)
+
+    def summary(self, key, flag=None) -> str:
+        rows = [(ms, n) for ms, n, f in self.spans.get(key, []) if flag is None or f == flag]
+        if not rows:
+            return f"{key}: none"
+        ms = [r[0] for r in rows]
+        return (f"{key}: {len(rows)} calls, median {statistics.median(ms):.2f} ms, max {max(ms):.2f} ms, "
+                f"host syncs {[r[1] for r in rows][:4]}")
+
+
+def _instrument(system) -> _Probe:
+    probe = _Probe()
+    probe.wrap(system.relocalizer, "relocalize", "relocalization", count_syncs=True)
+    probe.wrap(system.loop_closer, "_resolve_one_pending", "loop resolve", count_syncs=True)
+    probe.wrap(system.loop_closer, "process", "loop process (detect dispatch + deferred resolve)")
+    probe.wrap(system.loop_closer, "tick", "gba tick", when=lambda: system.loop_closer.pending_gba is not None)
+    return probe
+
+
+_COUNTERS = ("cap_overflow", "obs_overflow", "shed_work")
+
+
+def _overflow(m) -> dict:
+    return {k: int(getattr(m, k)) for k in _COUNTERS}
+
+
+def system_drive(cfg, pairs, poses, dev, smi) -> int:
+    """Phase 8: bench.py's frames through SlamSystem.track_stereo, then a
+    relocalization probe. Returns the FAST kernel's launches in the drive."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.models.system import SlamSystem
+    from my_orb_slam2_tpu_torch.models.tracking import TrackingState
+    from my_orb_slam2_tpu_torch.ops import fast_nms as fk
+
+    t0 = time.perf_counter()
+    system = SlamSystem(cfg, dev)
+    probe = _instrument(system)
+    print(f"system drive: SlamSystem built in {time.perf_counter() - t0:.1f} s (vocabulary {system.vocab.n_words} words "
+          f"depth {system.vocab.depth}, gate vocabulary {system.gate_vocab.n_words} words, bow_gate_div "
+          f"{system.cfg.matcher.bow_gate_div}, database {tuple(system.db.kf_bow.shape)} uint8)")
+    torch.cuda.synchronize()
+    fk.fast_nms.launches = 0
+    ok_frames, t_start = 0, None
+    for i, (left, right) in enumerate(pairs):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        info = system.track_stereo(left, right, i / 30.0)
+        ok_frames += info["state"] == TrackingState.OK
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_start
+    launches = fk.fast_nms.launches
+    n = len(pairs)
+    tr = system.tracker
+    ate = _ate(tr, poses, n)
+    m = tr.map
+    db_equal = bool(torch.equal(system.db.kf_valid, m.kf_valid))
+    over = _overflow(m)
+    print(f"system drive: {n} frames, ok {ok_frames}/{n}, ate_rmse_m {ate:.4f}, fps {(n - WARMUP) / elapsed:.2f} "
+          f"(frames {WARMUP}-{n - 1}, sync), keyframes alive/inserted {int(m.kf_valid.sum())}/{tr.kf_counter}, "
+          f"db n_docs {int(system.db.n_docs)}, db kf_valid == map kf_valid {db_equal}, loops_closed "
+          f"{system.loop_closer.loops_closed}, {over}, median track_ms {statistics.median(system.timing[WARMUP:]):.2f}, "
+          f"fast_nms launches {launches} [{smi}]")
+    print(f"  {probe.summary('loop process (detect dispatch + deferred resolve)')}")
+    if ok_frames != n:
+        raise SystemExit(f"the system drive tracked {ok_frames}/{n} frames")
+    if not ate < ATE_GATE:
+        raise SystemExit(f"system drive ate_rmse_m {ate} is not below {ATE_GATE}")
+    if not db_equal or over["cap_overflow"] or over["obs_overflow"]:
+        raise SystemExit(f"system drive: database/map mismatch ({db_equal}) or overflow {over}")
+    if launches < 2 * n:
+        raise SystemExit(f"the system drive launched the FAST+NMS kernel {launches} times for {n} frames")
+
+    # Relocalization probe: the tracker is set LOST and fed frame 50's pair.
+    tr.state = TrackingState.LOST
+    info = system.track_stereo(*pairs[RELOC_FRAME], n / 30.0)
+    T_gt = poses[RELOC_FRAME].astype(np.float64) @ np.linalg.inv(poses[0].astype(np.float64))
+    centre = lambda T: -T[:3, :3].T @ T[:3, 3]  # noqa: E731
+    err = float(np.linalg.norm(centre(info["Tcw"].astype(np.float64)) - centre(T_gt)))
+    print(f"relocalization probe (frame {RELOC_FRAME}): state {info['state']}, camera-centre error {err:.4f} m, "
+          f"reloc frame id {tr.last_reloc_frame_id}, ref keyframe {tr.ref_kf}; {probe.summary('relocalization')} "
+          f"[{smi}]")
+    if info["state"] != TrackingState.OK or not err < RELOC_GATE:
+        raise SystemExit(f"relocalization probe failed: state {info['state']}, error {err} m")
+    return launches
+
+
+def loop_drive(cfg, dev, smi, n_frames=LOOP_FRAMES, n_landmarks=120000, slots=2048, full_every=4):
+    """Phase 9: tools/loop_drive.py's circuit through SlamSystem.track_frame_data
+    (the synchronous tracker; the tool's pipeline_depth=5 is not ported)."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.models.system import SlamSystem
+    from my_orb_slam2_tpu_torch.models.tracking import TrackingState
+    from my_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, loop_world
+
+    world, poses, overlap = loop_world(cfg, n_frames, n_landmarks)
+    t0 = time.perf_counter()
+    frames = [world.observe(T, slots, seed=10_000 + i, device=dev)[0] for i, T in enumerate(poses)]
+    torch.cuda.synchronize()
+    print(f"loop drive: {n_frames} keypoint frames of {slots} slots rendered in {time.perf_counter() - t0:.1f} s "
+          f"(outside the timed window); lap {0.4 * (n_frames - overlap):.0f} m + {overlap}-frame revisit")
+    system = SlamSystem(cfg, dev, use_images=False, capacity=slots)
+    system.local_mapper.full_every = full_every
+    probe = _instrument(system)
+    lost = 0
+    t_start = time.perf_counter()
+    for i, frame in enumerate(frames):
+        info = system.track_frame_data(frame, i / 10.0)
+        lost += i > 0 and info["state"] != TrackingState.OK
+    system.shutdown()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t_start
+    lc = system.loop_closer
+    m = system.tracker.map
+    traj = system.tracker.trajectory_poses()
+    est = np.stack([T for _, _, T, lost_ in traj if not lost_])
+    assert np.isfinite(est).all()
+    ate = ate_rmse(est, poses[: len(est)])
+    c_est = np.stack([np.linalg.inv(T)[:3, 3] for T in est])
+    c_gt = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])
+    seam = float(np.linalg.norm((c_est[-1] - c_est[overlap // 2]) - (c_gt[-1] - c_gt[overlap // 2])))
+    print(f"loop drive: {n_frames} frames ({0.4 * n_frames:.0f} m), lost {lost}, ate_rmse_m {ate:.4f}, seam_error_m "
+          f"{seam:.4f}, loops_closed {lc.loops_closed}, gbas_completed {lc.gbas_completed}, fps {n_frames / elapsed:.2f} "
+          f"(all frames, sync, mapping + loop closing included), median track_ms "
+          f"{statistics.median(system.timing):.2f}, keyframes alive/inserted {int(m.kf_valid.sum())}/"
+          f"{system.tracker.kf_counter}, points alive {int(m.mp_valid.sum())}, {_overflow(m)}, keyframes refused "
+          f"{system.tracker.kf_capacity_refusals}, capacity {cfg.capacity.max_keyframes} KF / "
+          f"{cfg.capacity.max_map_points} MP / {slots} slots [{smi}]")
+    print(f"  {probe.summary('loop resolve', flag=True)} (closing calls)")
+    print(f"  {probe.summary('loop resolve', flag=False)} (non-closing calls)")
+    print(f"  {probe.summary('loop process (detect dispatch + deferred resolve)')}")
+    print(f"  {probe.summary('gba tick', flag=False)} (LM iterations); "
+          f"{probe.summary('gba tick', flag=True)} (writebacks)")
+    # cap_overflow accrues in two places: the tracker's local-map search
+    # (> 8192 candidates in the frustum) and the loop fuse (> 16 group
+    # members, > 4096 loop points); shed_work in the mapper's bounded passes.
+    print(f"  overflow counters added inside loop resolves {probe.accrued.get('loop resolve')}, the rest in tracking "
+          f"and local mapping")
+    if lost:
+        raise SystemExit(f"the loop drive lost {lost} frames")
+    if lc.loops_closed < 1 or lc.gbas_completed < 1:
+        raise SystemExit(f"loop drive: loops_closed {lc.loops_closed}, gbas_completed {lc.gbas_completed}")
+    if not ate < LOOP_ATE_GATE:
+        raise SystemExit(f"loop drive ate_rmse_m {ate} is not below {LOOP_ATE_GATE}")
+
+
 def main() -> int:
     import torch
 
@@ -230,7 +439,7 @@ def main() -> int:
 
     from my_orb_slam2_tpu_torch.models.frame import FrameFactory
     from my_orb_slam2_tpu_torch.ops import fast_nms as fk
-    from my_orb_slam2_tpu_torch.utils.synthetic import bench_config, capacity_config, stereo_drive
+    from my_orb_slam2_tpu_torch.utils.synthetic import bench_config, capacity_config, loop_config, stereo_drive
 
     # 1. card ---------------------------------------------------------------
     smi = subprocess.run(
@@ -316,9 +525,21 @@ def main() -> int:
     fk.fast_nms.launches = 0
     capacity_drive(capacity_config(), dev, smi)
     cap_launches = fk.fast_nms.launches
-    print(f"phase 7 took {time.perf_counter() - t0:.1f} s; fast_nms launches by drive: phase 5 {launches}, "
-          f"phase 6 {map_launches}, phase 7 {cap_launches}")
-    launches += map_launches + cap_launches
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # 8. system drive + relocalization probe --------------------------------
+    t0 = time.perf_counter()
+    sys_launches = system_drive(cfg, pairs, poses, dev, smi)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # 9. loop drive (no images: the FAST kernel is not on this path) --------
+    t0 = time.perf_counter()
+    fk.fast_nms.launches = 0
+    loop_drive(loop_config(), dev, smi)
+    loop_launches = fk.fast_nms.launches
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; fast_nms launches by drive: phase 5 {launches}, "
+          f"phase 6 {map_launches}, phase 7 {cap_launches}, phase 8 {sys_launches}, phase 9 {loop_launches}")
+    launches += map_launches + cap_launches + sys_launches + loop_launches
 
     print(json.dumps({"kernels": [{
         "name": "fast_nms",

@@ -471,12 +471,13 @@ def _set_row_(t: torch.Tensor, i: torch.Tensor, v, dim: int = 0) -> None:
 
 def insert_keyframe(
     state: MapState, Tcw, frame_id, timestamp, kp_uv, kp_ur, kp_depth, kp_octave, kp_angle,
-    kp_desc, kp_valid, mp_assign, obs_budget: int = 0,
+    kp_desc, kp_valid, mp_assign, obs_budget: int = 0, kp_words=None,
 ) -> tuple[MapState, torch.Tensor]:
     """Insert a keyframe at slot state.n_kf (the host keeps n_kf below
     capacity); update both observation-index directions, covisibility and
     the spanning tree. Duplicate point ids keep their first slot; with
-    obs_budget > 0 assignments to mature points are shed. Returns
+    obs_budget > 0 assignments to mature points are shed; `kp_words` (the
+    keypoints' vocabulary words) fill the keyframe's kf_words row. Returns
     (state, kf_id)."""
     kf_id = state.n_kf.clone()
     MP = state.mp_pos.shape[0]
@@ -506,6 +507,8 @@ def insert_keyframe(
         (state.kf_desc, kp_desc), (state.kf_kp_valid, kp_valid), (state.kf_mp, assign),
     ):
         _set_row_(field, kf_id, value)
+    if kp_words is not None:
+        _set_row_(state.kf_words, kf_id, kp_words)
     # Observation counts: +2 for stereo keypoints, +1 mono.
     obs_inc = torch.where(kp_ur >= 0, 2, 1).to(torch.int64)
     tgt = torch.where(did, assign, torch.full_like(assign, MP))

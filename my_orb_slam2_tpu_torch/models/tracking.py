@@ -23,10 +23,11 @@ Parity with the reference, deliberately reproduced:
   negated mask, padded with MP: no data-dependent shape, no host sync.
 - `jax.lax.top_k` is a stable descending sort; `jnp.argsort` is stable.
 
-A `LocalMapper` (models/local_mapping.py) attached to the `Tracker` runs
-after every keyframe insertion, as in the reference: the tracker becomes
-stereo SLAM. The pipelined mode, `track_motion_vo` (localization mode) and
-relocalization are not ported yet.
+A `LocalMapper` (models/local_mapping.py), or `SlamSystem`'s mapping chain,
+attached to the `Tracker` runs after every keyframe insertion, as in the
+reference. A LOST tracker stays lost on its own; `SlamSystem`
+(models/system.py) relocalizes it. The pipelined mode and `track_motion_vo`
+(localization mode) are not ported yet.
 """
 
 from __future__ import annotations
@@ -270,14 +271,23 @@ def track_local_map(cfg: SlamConfig, state: ms.MapState, frame: FrameData, Tcw, 
 
 
 def insert_keyframe_with_points(cfg: SlamConfig, state: ms.MapState, frame: FrameData, Tcw, cur_mp,
-                                frame_id, timestamp, min_new_points: int = 100):
+                                frame_id, timestamp, min_new_points: int = 100, vocab_pack=None,
+                                vocab_depth: int = 0):
     """Insert a keyframe and spawn close stereo map points for unmatched
     keypoints (depth-sorted: create while depth < close_depth or among the
-    `min_new_points` nearest). Returns (state, kf_id)."""
+    `min_new_points` nearest). With vocab_pack = (centers, children,
+    leaf_word) of a vocabulary tree, the keypoints' words are stored in
+    kf_words for the word gates. Returns (state, kf_id)."""
     cam = cfg.camera
+    kp_words = None
+    if vocab_pack is not None:
+        from my_orb_slam2_tpu_torch.ops.bow import _tree_words
+
+        kp_words = _tree_words(frame.desc, *vocab_pack, vocab_depth)
     state, kf_id = ms.insert_keyframe(
         state, Tcw, frame_id, timestamp, frame.uv, frame.ur, frame.depth, frame.octave,
         frame.angle, frame.desc, frame.valid, cur_mp, obs_budget=cfg.capacity.obs_budget,
+        kp_words=kp_words,
     )
     cand = frame.valid & (frame.depth > 0) & (cur_mp < 0)
     depth_key = torch.where(cand, frame.depth, torch.full_like(frame.depth, math.inf))
@@ -390,6 +400,7 @@ class Tracker:
         self.last_mp = None
         self.frame_id = 0
         self.last_kf_frame_id = 0
+        self.last_reloc_frame_id = -(10 ** 9)
         self.n_kf = 0
         self.ref_kf = 0
         self._ref_pose_host = None
@@ -398,6 +409,11 @@ class Tracker:
         self.trajectory = []
         self.kf_counter = 0
         self.kf_capacity_refusals = 0
+        # Vocabulary tree tables (centers, children, leaf_word) + depth,
+        # wired by SlamSystem so keyframes store their words; None = none.
+        self.vocab_pack = None
+        self.vocab_depth = 0
+        self.needs_reset = False  # lost soon after initialization
 
     # -- initialization ----------------------------------------------------
 
@@ -448,7 +464,8 @@ class Tracker:
             info["state"] = self.state
             return info
         if self.state != TrackingState.OK:
-            # LOST: relocalization is not ported; the tracker stays lost.
+            # LOST: SlamSystem relocalizes before calling track; a
+            # standalone Tracker stays lost.
             self._log_pose(timestamp)
             self.frame_id += 1
             info["Tcw"] = self.Tcw.copy()
@@ -484,10 +501,15 @@ class Tracker:
         stage1_inl = int(stats[6])
         info["motion_inliers" if stats[7] else "refkf_inliers"] = stage1_inl
         info["localmap_inliers"] = n_inliers
-        # Relocalization is not ported, so the after-relocalization inlier
-        # bar never applies.
-        if self._lost_check(stage1_inl, n_inliers, self.cfg.tracking.min_localmap_inliers):
+        recently_reloc = fid - self.last_reloc_frame_id < int(self.cfg.camera.fps)
+        min_inl = (self.cfg.tracking.min_localmap_inliers_after_reloc if recently_reloc
+                   else self.cfg.tracking.min_localmap_inliers)
+        if self._lost_check(stage1_inl, n_inliers, min_inl):
             self.state = TrackingState.LOST
+            # Lost soon after initialization: the map is unreliable, so
+            # SlamSystem resets.
+            if self.n_kf <= 5:
+                self.needs_reset = True
             self.reset_motion()
             info["state"] = self.state
             self._log_pose(ts, frame_id=fid)
@@ -505,6 +527,7 @@ class Tracker:
             kf_burst = (fid - self.last_kf_frame_id) <= 1 and self.kf_counter > 1
             self.map, _ = insert_keyframe_with_points(
                 self.cfg, self.map, frame, self._chain_Tcw, cur_mp, fid, float(ts),
+                vocab_pack=self.vocab_pack, vocab_depth=self.vocab_depth,
             )
             self.n_kf = kf_slot + 1
             self.last_kf_frame_id = fid

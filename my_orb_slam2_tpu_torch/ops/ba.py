@@ -1,7 +1,8 @@
-"""Local bundle adjustment on the dense (P, K) problem (counterpart of the
-dense path of my_orb_slam2_tpu/ops/ba.py).
+"""Bundle adjustment (counterpart of my_orb_slam2_tpu/ops/ba.py): the
+dense (P, K) local-BA path and the flat observation-list path that global
+BA takes.
 
-The problem keeps the map's inverted-index layout: one row per landmark with
+Dense path (local BA): the problem keeps the map's inverted-index layout: one row per landmark with
 up to K observer entries. Each Levenberg-Marquardt step computes every
 per-entry quantity as one (P, K) plane, reduces over the camera axis with a
 one-hot (C, P*K) matrix, Schur-reduces the landmarks onto the free cameras
@@ -252,7 +253,7 @@ def bundle_adjust_dense(
         dy = torch.einsum("pmn,pn->pm", V_inv, b_p - Wt_dx) * free_pt
         dy = torch.where(torch.isfinite(dy), dy, 0.0)
 
-        cam_upd = lie.se3_exp_batch(dx_c) @ cam_Tcw[:Cf]
+        cam_upd = lie.se3_exp(dx_c) @ cam_Tcw[:Cf]
         cam_upd = torch.where(prob.cam_fixed[:Cf, None, None], cam_Tcw[:Cf], cam_upd)
         cam_new = torch.cat([cam_upd, cam_Tcw[Cf:]])
         return (cam_new, pt_pos + dy, cam_Tcw, pt_pos, cost_best, lam)
@@ -295,3 +296,188 @@ def local_ba_dense(prob: DenseBAProblem, fx, fy, cx, cy, bf, iters1: int = 5, it
     prob = prob._replace(e_mask=classify_outliers_dense(prob, fx, fy, cx, cy, bf))
     prob = bundle_adjust_dense(prob, fx, fy, cx, cy, bf, n_iters=iters2, n_free=n_free)
     return prob, classify_outliers_dense(prob, fx, fy, cx, cy, bf)
+
+
+# ---------------------------------------------------------------------------
+# Flat observation-list path (global BA)
+# ---------------------------------------------------------------------------
+#
+# The g2o graph as a flat observation list over C cameras and P points. Each
+# LM step reduces the block system by segment sums (`index_add_`, atomic on
+# CUDA: the float sums may differ in the last bits from run to run on the
+# card), Schur-reduces the points and solves the camera system: densely
+# when C * 6 <= 512 and P * C <= 2**21 (an LU solve of the (6C, 6C) system
+# built from a (P, C, 6, 3) block table, as the reference), else by
+# matrix-free block-Jacobi PCG. Points follow by back-substitution; a step
+# is kept when the robust cost drops.
+
+
+class BAProblem(NamedTuple):
+    """Static-shape flat bundle adjustment problem."""
+
+    cam_Tcw: torch.Tensor  # (C, 4, 4)
+    cam_fixed: torch.Tensor  # (C,) bool
+    pt_pos: torch.Tensor  # (P, 3)
+    pt_valid: torch.Tensor  # (P,) bool
+    obs_cam: torch.Tensor  # (O,) camera index
+    obs_pt: torch.Tensor  # (O,) point index
+    obs_uv: torch.Tensor  # (O, 2)
+    obs_ur: torch.Tensor  # (O,) right-u or -1
+    obs_inv_sigma2: torch.Tensor  # (O,)
+    obs_mask: torch.Tensor  # (O,) bool
+
+
+def _residuals(cam_Tcw, pt_pos, prob: BAProblem, fx, fy, cx, cy, bf):
+    """Residuals (O, 3), Jacobians (O, 3, 6) camera / (O, 3, 3) point and
+    the camera-frame depth (O,)."""
+    T = cam_Tcw[prob.obs_cam]
+    R = T[:, :3, :3]
+    pc = torch.einsum("oij,oj->oi", R, pt_pos[prob.obs_pt]) + T[:, :3, 3]
+    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
+    iz = 1.0 / torch.where(torch.abs(z) > 1e-9, z, torch.full_like(z, 1e-9))
+    iz2 = iz * iz
+    u_pred = fx * x * iz + cx
+    v_pred = fy * y * iz + cy
+    ur_pred = u_pred - bf * iz
+    r = torch.stack([u_pred - prob.obs_uv[:, 0], v_pred - prob.obs_uv[:, 1], ur_pred - prob.obs_ur], dim=1)
+    zero = torch.zeros_like(x)
+    du = torch.stack([fx * iz, zero, -fx * x * iz2], dim=1)
+    dv = torch.stack([zero, fy * iz, -fy * y * iz2], dim=1)
+    dur = du + torch.stack([zero, zero, bf * iz2], dim=1)
+    J_proj = torch.stack([du, dv, dur], dim=1)
+    hat_pc = torch.stack(
+        [torch.stack([zero, -z, y], dim=1), torch.stack([z, zero, -x], dim=1), torch.stack([-y, x, zero], dim=1)],
+        dim=1,
+    )
+    I3 = torch.eye(3, dtype=x.dtype, device=x.device).expand(hat_pc.shape)
+    J_cam = J_proj @ torch.cat([I3, -hat_pc], dim=2)
+    J_pt = J_proj @ R
+    return r, J_cam, J_pt, z
+
+
+def _chi2(r, inv_sigma2, is_stereo):
+    return (r[:, 0] ** 2 + r[:, 1] ** 2 + torch.where(is_stereo, r[:, 2] ** 2, 0.0)) * inv_sigma2
+
+
+def _robust_cost(c2, delta, use_huber: bool):
+    if not use_huber:
+        return c2
+    s = torch.sqrt(torch.clamp(c2, min=1e-12))
+    return torch.where(s > delta, 2.0 * delta * s - delta * delta, c2)
+
+
+def classify_outliers(prob: BAProblem, fx, fy, cx, cy, bf):
+    """chi2 + positive-depth observation gating. Returns the new obs_mask."""
+    r, _, _, z = _residuals(prob.cam_Tcw, prob.pt_pos, prob, fx, fy, cx, cy, bf)
+    is_stereo = prob.obs_ur >= 0
+    c2 = _chi2(r, prob.obs_inv_sigma2, is_stereo)
+    return prob.obs_mask & (c2 <= torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)) & (z > 0)
+
+
+def _inv6x6(M):
+    """Batched 6x6 inverse (no host check for singular blocks)."""
+    return torch.linalg.inv_ex(M + 1e-9 * torch.eye(6, dtype=M.dtype, device=M.device))[0]
+
+
+def _seg(n: int, idx, vals):
+    return torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device).index_add_(0, idx, vals)
+
+
+def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, bf, n_iters: int = 10, cg_iters: int = 48,
+                  use_huber: bool = True, lam0=1e-4, return_lam: bool = False):
+    """n_iters LM steps on the flat problem; returns the updated problem
+    (and the final damping with return_lam, so an asynchronous caller can
+    run the schedule one step at a time)."""
+    C = prob.cam_Tcw.shape[0]
+    P = prob.pt_pos.shape[0]
+    dev, f32 = prob.pt_pos.device, prob.pt_pos.dtype
+    is_stereo = prob.obs_ur >= 0
+    delta = torch.sqrt(torch.where(is_stereo, CHI2_STEREO, CHI2_MONO))
+    free_cam = (~prob.cam_fixed).to(f32)[:, None]
+    free_pt = prob.pt_valid.to(f32)[:, None]
+    maskf = prob.obs_mask.to(f32)
+    dense = C * 6 <= 512 and P * C <= (1 << 21)
+
+    def total_cost(cam_Tcw, pt_pos):
+        r, _, _, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
+        rho = _robust_cost(_chi2(r, prob.obs_inv_sigma2, is_stereo), delta, use_huber)
+        return (rho * maskf * (z > 0)).sum()
+
+    cam_Tcw, pt_pos = prob.cam_Tcw, prob.pt_pos
+    lam = torch.as_tensor(lam0, dtype=f32, device=dev)
+    cost_cur = total_cost(cam_Tcw, pt_pos)
+    for _ in range(n_iters):
+        r, J_cam, J_pt, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
+        c2 = _chi2(r, prob.obs_inv_sigma2, is_stereo)
+        e = torch.sqrt(torch.clamp(c2, min=1e-12))
+        w_huber = torch.where(e > delta, delta / e, 1.0) if use_huber else torch.ones_like(e)
+        w = prob.obs_inv_sigma2 * w_huber * maskf * (z > 0)
+        row_w = torch.stack([w, w, w * is_stereo], dim=1)
+        Jc_w = J_cam * row_w[:, :, None]
+        Jp_w = J_pt * row_w[:, :, None]
+        U = _seg(C, prob.obs_cam, torch.einsum("oij,oik->ojk", Jc_w, J_cam))
+        V = _seg(P, prob.obs_pt, torch.einsum("oij,oik->ojk", Jp_w, J_pt))
+        Wo = torch.einsum("oij,oik->ojk", Jc_w, J_pt)  # (O, 6, 3)
+        b_c = _seg(C, prob.obs_cam, -torch.einsum("oij,oi->oj", Jc_w, r))
+        b_p = _seg(P, prob.obs_pt, -torch.einsum("oij,oi->oj", Jp_w, r))
+        U_d = U + lam * torch.diag_embed(torch.diagonal(U, dim1=1, dim2=2))
+        V_inv = _inv3x3(V + lam * torch.diag_embed(torch.diagonal(V, dim1=1, dim2=2)))
+        Vb = torch.einsum("pij,pj->pi", V_inv, b_p)
+        b_eff = (b_c - _seg(C, prob.obs_cam, torch.einsum("oij,oj->oi", Wo, Vb[prob.obs_pt]))) * free_cam
+
+        if dense:
+            D = C * 6
+            B = torch.zeros(P * C, 6, 3, dtype=f32, device=dev).index_add_(0, prob.obs_pt * C + prob.obs_cam, Wo)
+            B = B.reshape(P, C, 6, 3)
+            S = -torch.einsum("pcik,pdjk->cidj", torch.einsum("pcij,pjk->pcik", B, V_inv), B)
+            S = S + torch.einsum("cij,cd->cidj", U_d, torch.eye(C, dtype=f32, device=dev))
+            S = S.reshape(D, D)
+            # Pin singular rows: fixed cameras and free cameras with no
+            # observation (a dense solve would give NaN there).
+            live = free_cam.expand(C, 6).reshape(D) * (torch.diagonal(S) > 1e-10).to(f32)
+            S = S * (live[:, None] * live[None, :]) + torch.diag(1.0 - live)
+            dx_c = torch.linalg.solve_ex(S, (b_eff.reshape(D) * live)[:, None])[0][:, 0].reshape(C, 6)
+            dx_c = dx_c * free_cam
+            dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
+        else:
+            M_inv = _inv6x6(U_d)
+
+            def S_matvec(x):
+                x = x * free_cam
+                y = _seg(P, prob.obs_pt, torch.einsum("oij,oi->oj", Wo, x[prob.obs_cam]))
+                y = torch.einsum("pij,pj->pi", V_inv, y)
+                t2 = _seg(C, prob.obs_cam, torch.einsum("oij,oj->oi", Wo, y[prob.obs_pt]))
+                return (torch.einsum("cij,cj->ci", U_d, x) - t2) * free_cam
+
+            def precond(x):
+                return torch.einsum("cij,cj->ci", M_inv, x) * free_cam
+
+            dx_c = torch.zeros(C, 6, dtype=f32, device=dev)
+            rr = b_eff
+            pdir = precond(rr)
+            rz = (rr * pdir).sum()
+            for _ in range(cg_iters):
+                Sp = S_matvec(pdir)
+                denom = (pdir * Sp).sum()
+                alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
+                dx_c = dx_c + alpha * pdir
+                rr = rr - alpha * Sp
+                zz = precond(rr)
+                rz_new = (rr * zz).sum()
+                beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
+                pdir = zz + beta * pdir
+                rz = rz_new
+
+        # Back-substitute the points: dy = V^-1 (b_p - W^T dx).
+        Wt_dx = _seg(P, prob.obs_pt, torch.einsum("oij,oi->oj", Wo, dx_c[prob.obs_cam]))
+        dy = torch.einsum("pij,pj->pi", V_inv, b_p - Wt_dx) * free_pt
+        cam_new = torch.where(prob.cam_fixed[:, None, None], cam_Tcw, lie.se3_exp(dx_c) @ cam_Tcw)
+        pt_new = pt_pos + dy
+        cost_new = total_cost(cam_new, pt_new)
+        improved = cost_new < cost_cur
+        cam_Tcw = torch.where(improved, cam_new, cam_Tcw)
+        pt_pos = torch.where(improved, pt_new, pt_pos)
+        lam = torch.where(improved, lam * 0.5, lam * 4.0)
+        cost_cur = torch.where(improved, cost_new, cost_cur)
+    out = prob._replace(cam_Tcw=cam_Tcw, pt_pos=pt_pos)
+    return (out, lam) if return_lam else out

@@ -357,12 +357,21 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
 
 
+_PM1_BYTE_TABLES = {}
+
+
 def unpack_pm1(desc: torch.Tensor) -> torch.Tensor:
     """Unpack (..., N, 8) int32 descriptor words to (..., N, 256) float32
-    in {-1, +1}."""
-    shifts = torch.arange(32, device=desc.device, dtype=torch.int32)
-    bits = (desc.to(torch.int32)[..., None] >> shifts) & 1
-    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(desc.shape[:-1] + (256,))
+    in {-1, +1}: one gather of each byte's 8 signs from a (256, 8) table.
+    The bytes of a word are read little-endian (x86 and CUDA), so byte b of
+    word i holds bits 8b..8b+7 of that word, in the packing's order."""
+    table = _PM1_BYTE_TABLES.get(desc.device)
+    if table is None:
+        byte = torch.arange(256, dtype=torch.int32, device=desc.device)
+        bits = (byte[:, None] >> torch.arange(8, dtype=torch.int32, device=desc.device)) & 1
+        table = _PM1_BYTE_TABLES[desc.device] = bits.to(torch.float32) * 2.0 - 1.0
+    byte_ids = desc.to(torch.int32).contiguous().view(torch.uint8).to(torch.int64)
+    return table[byte_ids].reshape(desc.shape[:-1] + (256,))
 
 
 def hamming_distance(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
@@ -370,5 +379,6 @@ def hamming_distance(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
     descriptors (leading batch dims broadcast), as (256 - s1 . s2) / 2 over
     {-1, +1} vectors. The f32 matmul of +-1 entries is exact (integers below
     2^24, TF32 off)."""
-    dot = unpack_pm1(desc1) @ unpack_pm1(desc2).transpose(-1, -2)
-    return ((256.0 - dot) * 0.5).to(torch.int32)
+    s1 = unpack_pm1(desc1)
+    s2 = s1 if desc2 is desc1 else unpack_pm1(desc2)
+    return ((256.0 - s1 @ s2.transpose(-1, -2)) * 0.5).to(torch.int32)

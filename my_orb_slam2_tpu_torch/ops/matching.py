@@ -1,6 +1,6 @@
 """Correspondence search on torch tensors (counterpart of
-my_orb_slam2_tpu/ops/matching.py: the searches of the tracking and local
-mapping paths).
+my_orb_slam2_tpu/ops/matching.py: the searches of the tracking, local
+mapping, relocalization and loop-closing paths).
 
 Every search builds a (queries x candidates) Hamming matrix, masks it by the
 variant's geometric gates, reduces it to best / second-best with a ratio
@@ -120,11 +120,15 @@ def search_by_projection(
 def search_brute(
     desc1, valid1, desc2, valid2, angle1=None, angle2=None,
     max_dist: float = TH_LOW, ratio: float = 0.7, check_rotation: bool = True,
+    words1=None, words2=None, bucket_div: int = 0,
 ):
     """Descriptor-only matching between two feature sets (the reference's
-    SearchByBoW role). Returns (idx (N1,), ok (N1,), dist (N1,))."""
+    SearchByBoW role), optionally gated by shared vocabulary nodes
+    (`word_bucket_mask`). Returns (idx (N1,), ok (N1,), dist (N1,))."""
     dist = hamming_distance(desc1, desc2).to(torch.float32)
     mask = valid1[:, None] & valid2[None, :]
+    if bucket_div and words1 is not None and words2 is not None:
+        mask = mask & word_bucket_mask(words1, words2, bucket_div)
     idx, best, second = masked_best2(dist, mask)
     ok = (best <= max_dist) & ratio_test(best, second, ratio) & valid1
     if check_rotation and angle1 is not None and angle2 is not None:
@@ -188,3 +192,40 @@ def search_for_triangulation(
         ok = rotation_consistency(dang, ok)
     keep = one_to_one(idx, best, ok, kp2_uv.shape[-2])
     return idx, keep, best
+
+
+def search_by_sim3(
+    pts1_w, valid1, desc1, pts2_w, valid2, desc2, T1w, T2w, S12,
+    kp1_uv, kp1_octave, kp2_uv, kp2_octave, scale_factors, fx, fy, cx, cy,
+    th: float = 7.5, max_dist: float = TH_HIGH,
+):
+    """Mutual projection matching under a Sim3 guess (SearchBySim3): KF2's
+    points go into KF1 through S12, KF1's into KF2 through S21, and a pair
+    is kept when both directions agree. pts{1,2}_w are the keyframes' map
+    points aligned with their keypoint slots. Returns (idx12 (N1,), ok
+    (N1,), dist (N1,))."""
+    from my_orb_slam2_tpu_torch.ops import lie
+
+    S21 = lie.sim3_inverse(S12)
+
+    def project_set(T_cw, S, pts):
+        pc = lie.sim3_apply(S, lie.se3_apply(T_cw, pts))
+        z = torch.where(torch.abs(pc[:, 2]) > 1e-9, pc[:, 2], torch.full_like(pc[:, 2], 1e-9))
+        return torch.stack([fx * pc[:, 0] / z + cx, fy * pc[:, 1] / z + cy], dim=1), pc[:, 2]
+
+    def window(kp_uv, kp_oct, uv_in, z_in, valid_in):
+        r = th * scale_factors[kp_oct]
+        du = kp_uv[:, None, 0] - uv_in[None, :, 0]
+        dv = kp_uv[:, None, 1] - uv_in[None, :, 1]
+        return (torch.abs(du) < r[:, None]) & (torch.abs(dv) < r[:, None]) & valid_in[None, :] & (z_in[None, :] > 0)
+
+    uv2_in1, z2 = project_set(T2w, S12, pts2_w)
+    dist = hamming_distance(desc1, desc2).to(torch.float32)
+    idx12, best12, _ = masked_best2(dist, window(kp1_uv, kp1_octave, uv2_in1, z2, valid2))
+    ok12 = best12 <= max_dist
+    uv1_in2, z1 = project_set(T1w, S21, pts1_w)
+    idx21, best21, _ = masked_best2(dist.T, window(kp2_uv, kp2_octave, uv1_in2, z1, valid1))
+    ok21 = best21 <= max_dist
+    # Agreement: kp1 i matched to j and kp2 j matched back to i.
+    agree = ok12 & ok21[idx12] & (idx21[idx12] == torch.arange(idx12.shape[0], device=idx12.device))
+    return idx12, agree & valid1, best12

@@ -1,13 +1,14 @@
-"""Convert frames, map states and local-BA problems between numpy arrays
-and the port's tensors, so the port can be put in exactly the state of the
-JAX package.
+"""Convert frames, map states, BA problems, keyframe databases and
+vocabularies between numpy arrays and the port's tensors, so the port can
+be put in exactly the state of the JAX package.
 
-The JAX `FrameData` / `MapState` hold the same fields under the same names;
-`np.asarray` of each field gives the numpy side. Conversions keep the bits:
-uint32 descriptor words are reinterpreted as int32 with `.view`, integer
-fields widen to int64 (and narrow back to int32), floats stay float32.
-Every tensor is a copy, so in-place updates in the port never write into
-the caller's arrays.
+The JAX `FrameData` / `MapState` / `BAProblem` / `KfDatabase` hold the same
+fields under the same names; `np.asarray` of each field gives the numpy
+side. Conversions keep the bits: uint32 descriptor words are reinterpreted
+as int32 with `.view`, the database's uint8 count matrix stays uint8, other
+integer fields widen to int64 (and narrow back to int32), floats stay
+float32. Every tensor is a copy, so in-place updates in the port never
+write into the caller's arrays.
 """
 
 from __future__ import annotations
@@ -16,16 +17,21 @@ import numpy as np
 import torch
 
 from my_orb_slam2_tpu_torch.models.frame import FrameData
+from my_orb_slam2_tpu_torch.models.keyframe_db import KfDatabase
 from my_orb_slam2_tpu_torch.models.map_state import MapState
-from my_orb_slam2_tpu_torch.ops.ba import DenseBAProblem
+from my_orb_slam2_tpu_torch.ops.ba import BAProblem, DenseBAProblem
+from my_orb_slam2_tpu_torch.ops.bow import LshVocabulary, TreeVocabulary
 
 _DESC_FIELDS = {"desc", "mp_desc", "kf_desc"}
+_UINT8_FIELDS = {"kf_bow"}
 
 
 def _to_tensor(name: str, value, device) -> torch.Tensor:
     a = np.asarray(value)
     if name in _DESC_FIELDS:
         a = np.ascontiguousarray(a.astype(np.uint32, copy=False)).view(np.int32)
+    elif name in _UINT8_FIELDS:
+        a = a.astype(np.uint8)
     elif a.dtype.kind in "iu":
         a = a.astype(np.int64)
     elif a.dtype.kind == "f":
@@ -37,6 +43,8 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy()
     if name in _DESC_FIELDS:
         return np.ascontiguousarray(a.astype(np.int32)).view(np.uint32)
+    if name in _UINT8_FIELDS:
+        return a
     if a.dtype.kind in "iu":
         return a.astype(np.int32)
     return a
@@ -83,3 +91,33 @@ def aux_from_numpy(aux: dict, device) -> dict:
 
 def aux_to_numpy(aux: dict) -> dict:
     return {n: _to_numpy(n, t) for n, t in aux.items()}
+
+
+def flat_ba_problem_from_numpy(prob, device) -> BAProblem:
+    """The flat (global-BA) BAProblem from any object (or dict) with the
+    reference's fields."""
+    return BAProblem(**{n: _to_tensor(n, v, device) for n, v in _fields(prob, BAProblem._fields).items()})
+
+
+def flat_ba_problem_to_numpy(prob: BAProblem) -> dict:
+    return {n: _to_numpy(n, getattr(prob, n)) for n in BAProblem._fields}
+
+
+def kf_database_from_numpy(db, device) -> KfDatabase:
+    return KfDatabase(**{n: _to_tensor(n, v, device) for n, v in _fields(db, KfDatabase._fields).items()})
+
+
+def kf_database_to_numpy(db: KfDatabase) -> dict:
+    return {n: _to_numpy(n, getattr(db, n)) for n in KfDatabase._fields}
+
+
+def vocabulary_from_numpy(vocab, device):
+    """A port vocabulary from the reference's (tree: centers, children,
+    leaf_word, k, depth; LSH: n_bits, word_word, word_bit)."""
+    if hasattr(vocab, "centers"):
+        return TreeVocabulary(np.asarray(vocab.centers), np.asarray(vocab.children), np.asarray(vocab.leaf_word),
+                              vocab.k, vocab.depth, device=device)
+    out = LshVocabulary(vocab.n_bits, device=device)
+    out.word_word = _to_tensor("word_word", vocab.word_word, device)
+    out.word_bit = torch.tensor(np.asarray(vocab.word_bit).astype(np.int32), device=device)
+    return out

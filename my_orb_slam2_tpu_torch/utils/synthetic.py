@@ -7,6 +7,9 @@ my_orb_slam2_tpu/utils/synthetic.py and of the drive in bench.py).
   reference's frame bit for bit. `capacity_config` / `capacity_world` are
   tools/capacity_drive.py's KITTI-00-scale drive.
 
+- `loop_config` / `loop_world`: tools/loop_drive.py's closed circuit
+  (the tool imports jax, so its world is rebuilt here in numpy).
+
 - `ate_rmse`: absolute trajectory error (RMSE of camera centres) after a
   closed-form Horn alignment, here in numpy float64 (the reference uses
   ops/horn.horn_align in JAX float32).
@@ -199,6 +202,47 @@ def capacity_world(cfg: SlamConfig, n_frames: int, n_landmarks: int = 120000):
     world = SyntheticWorld(cfg, n_landmarks=n_landmarks, seed=0, extent=(25.0, 8.0, 1200.0),
                            depth_range=(2.0, 1200.0))
     return world, world.circular_trajectory(n_frames, forward_per_frame=0.8, yaw_per_frame=0.001)
+
+
+def loop_config() -> SlamConfig:
+    """tools/loop_drive.py's configuration: KITTI 00's intrinsics, 2000
+    features, 2048 keyframes, 262,144 map points, 300 stereo init points, a
+    keyframe at least every 10 frames."""
+    return SlamConfig(
+        sensor=Sensor.STEREO,
+        camera=CameraConfig(fx=718.856, fy=718.856, cx=607.19, cy=185.21, bf=386.1448, th_depth=35.0,
+                            width=1241, height=376),
+        orb=OrbConfig(n_features=2000),
+        capacity=CapacityConfig(max_keyframes=2048, max_map_points=262144),
+        tracking=TrackingConfig(min_stereo_init_points=300, max_frames_between_kf=10),
+    )
+
+
+def loop_world(cfg: SlamConfig, n_frames: int, n_landmarks: int = 120000):
+    """tools/loop_drive.py's closed circuit in numpy: one lap of 0.4 m a
+    frame in (n_frames - overlap) frames, overlap = max(n_frames // 12, 60)
+    frames revisiting the start, and a ring of landmarks 25 m inside to 45 m
+    outside the road, 8 m high, with viewing distances of 8-60 m. Returns
+    (world, poses (n, 4, 4) Tcw, overlap)."""
+    overlap = max(n_frames // 12, 60)
+    fwd = 0.4
+    yaw = 2.0 * np.pi / (n_frames - overlap)
+    R = fwd / yaw
+    world = SyntheticWorld(cfg, n_landmarks=n_landmarks, seed=0)
+    rng = np.random.default_rng(1)
+    rng.uniform(0, 2 * np.pi, n_landmarks)  # the tool's first ring, replaced below
+    rng.uniform(-25.0, 45.0, n_landmarks)
+    rng.uniform(-8.0, 8.0, n_landmarks)
+    world.z_ref = rng.uniform(8.0, 60.0, n_landmarks) * (1.2 ** world.base_octave)
+    poses = world.circular_trajectory(n_frames, forward_per_frame=fwd, yaw_per_frame=yaw)
+    c_xz = np.stack([np.linalg.inv(T)[:3, 3] for T in poses])[:, [0, 2]].mean(axis=0)
+    rng = np.random.default_rng(1)
+    theta = rng.uniform(0, 2 * np.pi, n_landmarks)
+    r = R + rng.uniform(-25.0, 45.0, n_landmarks)
+    world.landmarks = np.stack(
+        [c_xz[0] + r * np.cos(theta), rng.uniform(-8.0, 8.0, n_landmarks), c_xz[1] + r * np.sin(theta)], axis=1
+    )
+    return world, poses, overlap
 
 
 def _se3_exp_np(xi: np.ndarray) -> np.ndarray:

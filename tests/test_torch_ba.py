@@ -88,7 +88,7 @@ def test_se3_exp_batch():
     xi[0] = 0.0
     xi[1, 3:] = 1e-6  # below the small-angle switch
     ref = np.stack([np.asarray(jlie.se3_exp(jnp.asarray(x))) for x in xi])
-    np.testing.assert_allclose(tlie.se3_exp_batch(torch.tensor(xi)).numpy(), ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(tlie.se3_exp(torch.tensor(xi)).numpy(), ref, rtol=0, atol=1e-6)
 
 
 def test_classify_outliers_dense(problem):

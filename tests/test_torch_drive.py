@@ -6,6 +6,8 @@ stated tolerance."""
 
 import numpy as np
 import jax
+import pytest
+import torch
 
 from my_orb_slam2_tpu.models.frame import FrameFactory as JFrameFactory
 from my_orb_slam2_tpu.models.tracking import Tracker as JTracker
@@ -15,6 +17,8 @@ from my_orb_slam2_tpu_torch.models.tracking import Tracker as TTracker
 from my_orb_slam2_tpu_torch.models.tracking import TrackingState
 from my_orb_slam2_tpu_torch.utils import bridge
 from my_orb_slam2_tpu_torch.utils.synthetic import ate_rmse, bench_config, stereo_drive
+from tests._torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 CT = bench_config(240, 320, 300)
 CJ = jcfg.SlamConfig(

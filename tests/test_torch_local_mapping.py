@@ -45,6 +45,8 @@ from my_orb_slam2_tpu_torch.models.tracking import TrackingState
 from my_orb_slam2_tpu_torch.ops import ba as tba
 from my_orb_slam2_tpu_torch.utils import bridge
 from my_orb_slam2_tpu_torch.utils import config as tcfg
+from tests._torch_threads import one_torch_thread  # noqa: F401  (autouse)
+
 
 CAPACITY = 512
 N_FRAMES = 24
