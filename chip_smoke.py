@@ -10,13 +10,17 @@ Phases (any failure raises, so the exit code is non-zero):
 2. build: compiles the FAST+NMS kernel from csrc/ with nvcc (sm_90a);
 3. kernel check: the kernel against its plain PyTorch version on the card,
    torch.equal on a random uint8 640x480 image, on the pyramid atlas of a
-   rendered bench frame and on a left+right batch; CUDA-event times of
-   both (20 back-to-back calls, median of 5 runs);
+   rendered bench frame, on the (2, 2288, 656) left+right batch that the
+   main path launches on, and on the atlas cut to an odd width (the
+   unaligned tile loader); on the atlas and the batch, the kernel's device
+   time (profiler), the wrapper's host time per call, CUDA events around 20
+   back-to-back calls, the plain version's time and the bound (bytes and
+   operations this input needs; time_fast_nms.py);
 4. front-end check: FrameFactory.build_stereo of one bench pair on the card
    against the same call on the CPU (plain versions);
 5. drive: bench.py's synthetic stereo drive (640x480, 1000 features, 8
    levels, 100 frames) through FrameFactory.build_stereo + the synchronous
-   Tracker, gated at ATE < 0.15 m, with the kernel's launch count;
+   Tracker, gated at ATE < 0.15 m and one kernel launch a stereo frame;
 6. mapping drive: the same frames through the Tracker with a
    LocalMapper(run_ba=True, cull_keyframes=True): stereo SLAM with
    triangulation, fuse, dense local BA and keyframe culling after every
@@ -41,7 +45,7 @@ Phases (any failure raises, so the exit code is non-zero):
    >= 1 loop closed, >= 1 global BA applied and ATE < 0.5 m.
 
 Each drive sets the kernel's launch counter to 0 just before it and reads
-it just after. Phases 8 and 9 time the relocalization, the loop closure
+it just after; phases 5, 6 and 8 must launch it exactly once a frame. Phases 8 and 9 time the relocalization, the loop closure
 (detection resolve -> Sim3 -> correction) and each GBA tick between device
 synchronizations, and count the host syncs of a loop closure with
 torch.cuda.set_sync_debug_mode. The line before the last is a JSON object
@@ -69,25 +73,6 @@ RELOC_FRAME = 50
 RELOC_GATE = 0.2
 LOOP_FRAMES = 600
 LOOP_ATE_GATE = 0.5
-
-
-def _cuda_ms(fn, n: int = 20, repeats: int = 5, warmup: int = 3) -> float:
-    """Time per call in ms: CUDA events around `n` back-to-back calls,
-    divided by n; the median over `repeats` such runs."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
 
 
 def _kp_set(kps, level=None):
@@ -181,8 +166,9 @@ def image_drive(cfg, factory, pairs, poses, dev, mapper=None) -> dict:
 
 def _check_image_drive(d, name):
     n = d["n"]
-    if d["launches"] < 2 * n:
-        raise SystemExit(f"the {name} launched the FAST+NMS kernel {d['launches']} times for {n} frames")
+    if d["launches"] != n:
+        raise SystemExit(f"the {name} launched the FAST+NMS kernel {d['launches']} times for {n} frames, "
+                         f"not once a frame")
     if not d["ate"] < ATE_GATE:
         raise SystemExit(f"{name} ate_rmse_m {d['ate']} is not below {ATE_GATE}")
 
@@ -353,8 +339,9 @@ def system_drive(cfg, pairs, poses, dev, smi) -> int:
         raise SystemExit(f"system drive ate_rmse_m {ate} is not below {ATE_GATE}")
     if not db_equal or over["cap_overflow"] or over["obs_overflow"]:
         raise SystemExit(f"system drive: database/map mismatch ({db_equal}) or overflow {over}")
-    if launches < 2 * n:
-        raise SystemExit(f"the system drive launched the FAST+NMS kernel {launches} times for {n} frames")
+    if launches != n:
+        raise SystemExit(f"the system drive launched the FAST+NMS kernel {launches} times for {n} frames, "
+                         f"not once a frame")
 
     # Relocalization probe: the tracker is set LOST and fed frame 50's pair.
     tr.state = TrackingState.LOST
@@ -437,6 +424,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
+    from my_orb_slam2_tpu_torch import time_fast_nms as tf
     from my_orb_slam2_tpu_torch.models.frame import FrameFactory
     from my_orb_slam2_tpu_torch.ops import fast_nms as fk
     from my_orb_slam2_tpu_torch.utils.synthetic import bench_config, capacity_config, loop_config, stereo_drive
@@ -467,12 +455,10 @@ def main() -> int:
     factory = FrameFactory(cfg, dev)
     ex = factory.extractor
     rng = np.random.default_rng(0)
-    random_img = torch.tensor(rng.integers(0, 256, (480, 640)).astype(np.float32), device=dev)
-    atlas_l = ex.build_atlas(torch.as_tensor(pairs[0][0]).to(dev).float())
-    atlas_r = ex.build_atlas(torch.as_tensor(pairs[0][1]).to(dev).float())
-    cases = [("random 480x640", random_img), ("bench atlas", atlas_l), ("bench atlas L+R batch", torch.stack([atlas_l, atlas_r]))]
+    inputs = tf.bench_inputs(dev)
+    cases = {"random 480x640": torch.tensor(rng.integers(0, 256, (480, 640)).astype(np.float32), device=dev), **inputs}
     max_err = 0.0
-    for name, x in cases:
+    for name, x in cases.items():
         out = fk.fast_nms(x, FAST_THRESHOLD, 9)
         ref = fk.nms3x3(fk.fast_score_map(x, FAST_THRESHOLD, 9))
         torch.cuda.synchronize()
@@ -482,10 +468,17 @@ def main() -> int:
         print(f"kernel check [{name} {tuple(x.shape)}]: torch.equal={equal} max_abs_err={err} corners={int((ref > 0).sum())}")
         if not equal:
             raise SystemExit(f"FAST+NMS kernel disagrees with its plain version on {name}")
-    k_ms = _cuda_ms(lambda: fk.fast_nms(atlas_l, FAST_THRESHOLD, 9))
-    p_ms = _cuda_ms(lambda: fk.nms3x3(fk.fast_score_map(atlas_l, FAST_THRESHOLD, 9)))
-    print(f"kernel time on the bench atlas {tuple(atlas_l.shape)}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-          f"(CUDA events over 20 back-to-back calls, median of 5 runs) [{smi}]")
+    timed = {}
+    for name in ("bench atlas", "L+R batch"):
+        x = inputs[name]
+        t = {**tf.time_kernel(x), "plain_ms": tf.time_plain(x), **tf.bound(x)}
+        timed[name] = t
+        print(f"kernel time [{name} {tuple(x.shape)}]: device {t['device_ms']:.5f} ms ({t['device_ms_from']}), "
+              f"graph replay {t['graph_ms']:.5f} ms/launch, wrapper host {t['host_ms']:.5f} ms/call, "
+              f"back-to-back events {t['events_ms']:.5f} ms/call, plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.5f} ms by {t['bound_by']} ({t['bytes'] / 1e6:.2f} MB; {t['ops'] / 1e6:.1f} M ops for "
+              f"{t['candidates']} compass candidates, {t['corners']} non-zero scores of {t['pixels']} pixels), "
+              f"share of bound {t['bound_ms'] / t['device_ms']:.3f} [{smi}]")
 
     # 4. front-end check against the CPU plain path -------------------------
     frame_gpu = factory.build_stereo(*pairs[0])
@@ -539,17 +532,28 @@ def main() -> int:
     loop_launches = fk.fast_nms.launches
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s; fast_nms launches by drive: phase 5 {launches}, "
           f"phase 6 {map_launches}, phase 7 {cap_launches}, phase 8 {sys_launches}, phase 9 {loop_launches}")
+    image_frames = 3 * N_FRAMES  # phases 5, 6 and 8 feed images; 7 and 9 keypoint frames
+    per_frame = (launches + map_launches + sys_launches) / image_frames
     launches += map_launches + cap_launches + sys_launches + loop_launches
 
+    main_t, atlas_t = timed["L+R batch"], timed["bench atlas"]  # the main path launches on the L+R batch
     print(json.dumps({"kernels": [{
         "name": "fast_nms",
         "route": "cuda",
         "source": "my_orb_slam2_tpu_torch/csrc/fast_nms.cu",
         "replaces": "my_orb_slam2_tpu/ops/fast_pallas.py:109",
         "launches": launches,
+        "launches_per_frame": per_frame,
         "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "shape": list(inputs["L+R batch"].shape),
+        "ms": main_t["events_ms"],
+        "device_ms": main_t["device_ms"],
+        "host_ms": main_t["host_ms"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"],
+        "library_ms": None,
+        "single_atlas": {k: atlas_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -2,8 +2,9 @@
 my_orb_slam2_tpu/models/frame.py).
 
 A frame is a NamedTuple of fixed-capacity tensors (`FrameData`), produced by
-`FrameFactory.build_stereo`: two ORB extractions (left, right) and the
-row-band stereo match. RGB-D and mono builders are not ported yet.
+`FrameFactory.build_stereo`: the ORB extraction of the left and right
+images (one FAST+NMS launch over both atlases) and the row-band stereo
+match. RGB-D and mono frames are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ class FrameData(NamedTuple):
 class FrameFactory:
     """Builds FrameData from images on `device`."""
 
-    def __init__(self, cfg: SlamConfig, device):
+    def __init__(self, cfg: SlamConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         cam = cfg.camera
@@ -51,8 +52,8 @@ class FrameFactory:
         less than float32; the extractor casts on the device)."""
         cam = self.cfg.camera
         ex = self.extractor
-        kpsL, atlasL = ex(torch.as_tensor(imgL).to(self.device))
-        kpsR, atlasR = ex(torch.as_tensor(imgR).to(self.device))
+        (kpsL, atlasL), (kpsR, atlasR) = ex.extract_batch(
+            [torch.as_tensor(imgL).to(self.device), torch.as_tensor(imgR).to(self.device)])
         u_right, depth = stereo_ops.match_stereo(
             kpsL.uv, kpsL.uv_level, kpsL.octave, kpsL.valid, kpsR.uv, kpsR.octave, kpsR.valid,
             kpsL.desc, kpsR.desc, atlasL, atlasR, ex.level_offsets, ex.level_w, ex.level_h,

@@ -463,7 +463,7 @@ def _start_readback(t: torch.Tensor):
 
 
 class LoopCloser:
-    def __init__(self, cfg: SlamConfig, vocab, device, run_global_ba: bool = True, draws=None):
+    def __init__(self, cfg: SlamConfig, vocab, device="cuda", run_global_ba: bool = True, draws=None):
         self.cfg = cfg
         self.vocab = vocab
         self.run_global_ba = run_global_ba

@@ -139,7 +139,7 @@ class Relocalizer:
     """Host side: query the database, evaluate the candidates on the
     device, read the winner back once."""
 
-    def __init__(self, cfg: SlamConfig, vocab, device, draws=None):
+    def __init__(self, cfg: SlamConfig, vocab, device="cuda", draws=None):
         self.cfg = cfg
         self.vocab = vocab
         self.draws = draws if draws is not None else DeviceUniforms(7, device)

@@ -72,7 +72,7 @@ class _MappingChain:
 
 
 class SlamSystem:
-    def __init__(self, cfg: SlamConfig, device, use_images: bool = True, vocab=None,
+    def __init__(self, cfg: SlamConfig, device="cuda", use_images: bool = True, vocab=None,
                  enable_loop_closing: bool = True, run_global_ba_on_loop: bool = True,
                  capacity: Optional[int] = None, pipeline_depth: int = 0):
         if pipeline_depth > 0:

@@ -384,7 +384,7 @@ class Tracker:
     """Host orchestration of the per-frame pipeline in synchronous mode:
     state machine, velocity model, keyframe policy and trajectory log."""
 
-    def __init__(self, cfg: SlamConfig, capacity: int, device, local_mapper=None):
+    def __init__(self, cfg: SlamConfig, capacity: int, device="cuda", local_mapper=None):
         self.cfg = cfg
         self.local_mapper = local_mapper
         self.capacity = capacity

@@ -41,7 +41,7 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 class LshVocabulary:
     """Word id = concatenation of `n_bits` fixed random descriptor bits."""
 
-    def __init__(self, n_bits: int = 16, seed: int = 123, device="cpu"):
+    def __init__(self, n_bits: int = 16, seed: int = 123, device="cuda"):
         assert n_bits <= 24
         self.n_bits = n_bits
         self.n_words = 1 << n_bits
@@ -62,7 +62,7 @@ class TreeVocabulary:
     none); leaf word id = position among the leaves. Arrays may be given as
     numpy (uint32 centers) and are moved to `device`."""
 
-    def __init__(self, centers, children, leaf_word, k: int, depth: int, device="cpu"):
+    def __init__(self, centers, children, leaf_word, k: int, depth: int, device="cuda"):
         c = np.ascontiguousarray(np.asarray(centers).astype(np.uint32, copy=False)).view(np.int32)
         self.centers = torch.tensor(c, device=device)
         self.children = torch.tensor(np.asarray(children), dtype=torch.int64, device=device)

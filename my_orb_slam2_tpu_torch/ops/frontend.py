@@ -10,6 +10,8 @@ and the blur-folded rotated-BRIEF matmul.
 
 Where PyTorch and XLA differ, the port follows the reference explicitly:
 
+- A stereo pair is extracted with one FAST+NMS call over both atlases
+  (`extract_batch`); a single image with `forward`.
 - Resize: `jax.image.resize(method="linear")` antialiases when it
   downsamples (a triangle kernel widened by 1/scale). The port rebuilds
   those separable weights in numpy with the same float32 formula and applies
@@ -139,7 +141,7 @@ class OrbExtractor(nn.Module):
     """
 
     def __init__(self, cfg: OrbConfig, height: int, width: int, cell: int | None = None,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.cfg = cfg
         self.h0, self.w0 = height, width
@@ -227,10 +229,15 @@ class OrbExtractor(nn.Module):
         wx = getattr(self, f"resize_x{level}")
         return (wy @ img) @ wx.T
 
-    def build_atlas(self, img: torch.Tensor) -> torch.Tensor:
+    def build_atlas(self, img: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
         """Pyramid levels stacked into one canvas with 3px reflected borders
-        written into the gaps. Each level resizes directly from level 0."""
-        atlas = img.new_zeros((self.atlas_h, self.atlas_w))
+        written into the gaps. Each level resizes directly from level 0.
+        With `out` (an (atlas_h, atlas_w) f32 tensor, e.g. one slice of a
+        batch), the canvas is written there and returned."""
+        if out is None:
+            atlas = img.new_zeros((self.atlas_h, self.atlas_w))
+        else:
+            atlas = out.zero_()
         G = GAP
         for l, spec in enumerate(self.levels):
             cur = img if l == 0 else self._resize(img, l)
@@ -300,20 +307,33 @@ class OrbExtractor(nn.Module):
 
     # -- whole image -------------------------------------------------------
 
-    def _extract_impl(self, image):
-        """image: (H, W) grayscale in [0, 255] (any real dtype).
-        Returns (Keypoints, atlas)."""
-        img = image.to(torch.float32)
-        atlas = self.build_atlas(img)
-        score_atlas = fast_nms(atlas, float(self.cfg.min_th_fast), self.cfg.fast_arc)
+    def fast_scores(self, atlas: torch.Tensor) -> torch.Tensor:
+        """FAST V-score + 3x3 NMS over one atlas or a (B, H, W) batch of
+        them, in one call (one kernel launch on the card)."""
+        return fast_nms(atlas, float(self.cfg.min_th_fast), self.cfg.fast_arc)
 
+    def extract_batch(self, images) -> list:
+        """ORB extraction of several (H, W) images with one FAST+NMS call:
+        the atlases are built into one (B, atlas_h, atlas_w) buffer, then
+        each image is detected and described on its own. Returns
+        [(Keypoints, atlas)] in input order, each equal to `forward`'s."""
+        imgs = [im.to(torch.float32) for im in images]
+        atlases = imgs[0].new_empty((len(imgs), self.atlas_h, self.atlas_w))
+        for img, out in zip(imgs, atlases):
+            self.build_atlas(img, out=out)
+        scores = self.fast_scores(atlases)
+        return [(self.detect_and_describe(a, s), a) for a, s in zip(atlases, scores)]
+
+    def detect_and_describe(self, atlas: torch.Tensor, score_atlas: torch.Tensor) -> Keypoints:
+        """Keypoints of one image from its atlas and its NMS'd FAST score
+        atlas: per-level selection, orientation and rotated BRIEF."""
         xs, ys, resps, octs, valids = [], [], [], [], []
         for l, spec in enumerate(self.levels):
             xy, resp, valid = self._detect_level(score_atlas, spec)
             xs.append(xy[:, 0])
             ys.append(xy[:, 1])
             resps.append(resp)
-            octs.append(torch.full((xy.shape[0],), l, dtype=torch.int64, device=img.device))
+            octs.append(torch.full((xy.shape[0],), l, dtype=torch.int64, device=atlas.device))
             valids.append(valid)
         x = torch.cat(xs)
         y = torch.cat(ys)
@@ -338,14 +358,16 @@ class OrbExtractor(nn.Module):
             uv0, uv_level, resp, octv, ang, desc, valid = map(
                 padded, (uv0, uv_level, resp, octv, ang, desc, valid)
             )
-        kps = Keypoints(
+        return Keypoints(
             uv=uv0, uv_level=uv_level, response=resp, octave=octv,
             angle=ang, desc=desc, valid=valid,
         )
-        return kps, atlas
 
     def forward(self, image):
-        return self._extract_impl(image)
+        """image: (H, W) grayscale in [0, 255] (any real dtype).
+        Returns (Keypoints, atlas)."""
+        atlas = self.build_atlas(image.to(torch.float32))
+        return self.detect_and_describe(atlas, self.fast_scores(atlas)), atlas
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:

@@ -24,12 +24,12 @@ DEFAULT_ASSET = os.path.join(_ASSET_DIR, "orbvoc_k10_L5.npz")
 FALLBACK_ASSET = os.path.join(_ASSET_DIR, "orbvoc_k10_L4.npz")
 
 
-def load_packed(path: str, device="cpu") -> TreeVocabulary:
+def load_packed(path: str, device="cuda") -> TreeVocabulary:
     d = np.load(path)
     return TreeVocabulary(d["centers"], d["children"], d["leaf_word"], int(d["k"]), int(d["depth"]), device=device)
 
 
-def default_vocabulary(device="cpu"):
+def default_vocabulary(device="cuda"):
     """The default place-recognition vocabulary, resolved in the
     reference's order: $SLAM_VOCAB (packed npz path) -> the packed
     100k-word k10_L5 asset -> the packed 10k-word k10_L4 asset -> the

@@ -63,6 +63,18 @@ def extracted(extractors):
     return img, kj, np.asarray(aj), kt, at.numpy()
 
 
+def test_extract_batch_equals_forward(extractors):
+    """The stereo path's one FAST+NMS call over both atlases gives each
+    image exactly what the single-image forward gives."""
+    _, et = extractors
+    imgs = [torch.tensor(_texture(seed)) for seed in (4, 5)]
+    for (kb, ab), img in zip(et.extract_batch(imgs), imgs):
+        kf, af = et(img)
+        assert torch.equal(ab, af)
+        for name in kf._fields:
+            assert torch.equal(getattr(kb, name), getattr(kf, name)), name
+
+
 def test_extractor_tables_equal(extractors):
     ej, et = extractors
     assert et.levels == ej.levels

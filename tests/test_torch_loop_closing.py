@@ -444,7 +444,7 @@ def test_loop_closer_process(loop_map):
     starts the asynchronous GBA, which ticks to completion."""
     d = loop_map["state"]
     jv = jvio.load_packed(jvio._FALLBACK_ASSET)
-    tv = tvio.load_packed(jvio._FALLBACK_ASSET)
+    tv = tvio.load_packed(jvio._FALLBACK_ASSET, device="cpu")
     jdb = jkdb.init_db(32, d["kf_uv"].shape[1], jv.n_words)
     for k in range(M):
         jdb = jkdb.add_keyframe(jdb, jnp.int32(k), jv.words(jnp.asarray(d["kf_desc"][k])), jnp.asarray(d["kf_kp_valid"][k]))

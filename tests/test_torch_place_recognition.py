@@ -47,7 +47,7 @@ def _t(desc):
 
 @pytest.fixture(scope="module")
 def vocabs():
-    return {name: (jvio.load_packed(path), tvio.load_packed(path))
+    return {name: (jvio.load_packed(path), tvio.load_packed(path, device="cpu"))
             for name, path in (("L4", jvio._FALLBACK_ASSET), ("L5", jvio._DEFAULT_ASSET))}
 
 
@@ -69,7 +69,7 @@ def test_tree_words_exact(vocabs, name):
 
 def test_lsh_words_and_popcount():
     desc = _desc(np.random.default_rng(2), 512)
-    jv, tv = jbow.LshVocabulary(n_bits=14), tbow.LshVocabulary(n_bits=14)
+    jv, tv = jbow.LshVocabulary(n_bits=14), tbow.LshVocabulary(n_bits=14, device="cpu")
     ref = np.asarray(jv.words(jnp.asarray(desc)))
     assert np.array_equal(tv.words(_t(desc)).numpy(), ref)
     assert np.array_equal(bridge.vocabulary_from_numpy(jv, "cpu").words(_t(desc)).numpy(), ref)
@@ -79,13 +79,13 @@ def test_lsh_words_and_popcount():
 
 def test_vocab_io_resolution(monkeypatch):
     monkeypatch.delenv("SLAM_VOCAB", raising=False)
-    jv, tv = jvio.default_vocabulary(), tvio.default_vocabulary()
+    jv, tv = jvio.default_vocabulary(), tvio.default_vocabulary(device="cpu")
     assert (tv.k, tv.depth, tv.n_words) == (jv.k, jv.depth, jv.n_words) == (10, 5, 100000)
     assert tvio.DEFAULT_ASSET.endswith("my_orb_slam2_tpu/assets/orbvoc_k10_L5.npz")
     monkeypatch.setenv("SLAM_VOCAB", jvio._FALLBACK_ASSET)
-    assert tvio.default_vocabulary().depth == jvio.default_vocabulary().depth == 4
+    assert tvio.default_vocabulary(device="cpu").depth == jvio.default_vocabulary().depth == 4
     monkeypatch.setenv("SLAM_VOCAB", "/nonexistent/vocab.npz")
-    assert tvio.default_vocabulary().depth == 5
+    assert tvio.default_vocabulary(device="cpu").depth == 5
 
 
 # ---------------------------------------------------------------------------
