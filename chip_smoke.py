@@ -113,12 +113,38 @@ Phases (any failure raises, so the exit code is non-zero):
    processed >= 2, the system reached OK; and sent > 0, one launch a
    processed frame. Prints the granted socket buffers, the deadline
    misses, the camera's late frames and the ATE over the processed
-   frames (ground truth by timestamp).
+   frames (ground truth by timestamp);
+15. sharded solvers: `dist_fake_cluster` ranks on cuda:0, one cluster per
+   (backend, world) running every kind it has to (gloo at world 1:
+   camera-sharded BA and pose graph; gloo at 2: those, the
+   observation-sharded BA and the batch front-end; gloo at 4 and NCCL at
+   1: the BA and the pose graph). The BA is the reference tool's default
+   problem (64 cameras, 6000 points, ~343k observations, 8 LM x 48 CG
+   steps), the pose graph a drifted loop at phase 9's 2048 keyframes (15
+   GN x 64 CG steps, fix_scale), the front-end phase 5's first 8 left
+   images (one (4, 2288, 656) launch a rank at world 2). Gated: the tool's
+   ok on every run (median point error < 5e-3 and relative pose error <
+   1e-3 against the single-device solvers), replicated outputs
+   bit-identical across ranks, every image's keypoints equal to the
+   single-device extractor's and one launch a rank; NCCL at world 2 must
+   raise (two ranks on one card), and NCCL's own answer to two raw ranks
+   on one card is printed. First the kernel on one rank's (4, 2288, 656)
+   batch. All ranks share one card: these runs measure correctness and
+   the cost of the collectives, not scaling;
+16. vocabulary training: `make_vocab` at its defaults (96 frames of 8
+   rendered worlds at 640x480, 1000 features, k=10, L=4, 6 iterations):
+   one launch a world's (12, 2288, 656) batch, the tree trained on the
+   card. Gated: the card's tree equal to the one the CPU trains from the
+   same corpus, every corpus descriptor's word kept through save_packed ->
+   load_packed and save_dbow2_text -> load_dbow2_text, 8 launches for the
+   corpus and one for the held-out frame. First the kernel on world 0's
+   batch.
 
 Each drive sets the kernel's launch counter to 0 just before it and reads
 it just after; phases 5, 5b, 6, 8, 10, 12 and 13 must launch it exactly
 once a frame, phase 11 once an image and phase 14 once a processed
-frame (phase 14 counts in its serve process, which prints the count).
+frame (phase 14 counts in its serve process, which prints the count);
+phase 15 once a rank (counted in the ranks) and phase 16 once a world.
 Phases 5 and 5b print their fps with its spread (the fps of each quarter
 of the timed frames). Phases 8 and 9 time the relocalization, the loop
 closure (detection resolve -> Sim3 -> correction) and each GBA tick
@@ -126,7 +152,8 @@ between device synchronizations, and count the host syncs of a loop
 closure with torch.cuda.set_sync_debug_mode. The line before the last is
 a JSON object describing each kernel (launches summed over the drives;
 the kernel's times on each main-path input: the stereo batch, the single
-atlas, the mono atlas, KITTI's and EuRoC's batches); the last line is
+atlas, the mono atlas, KITTI's and EuRoC's batches, a front-end rank's
+(4, 2288, 656) batch and make_vocab's (12, 2288, 656) one); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -1091,6 +1118,167 @@ def stream_phase(dev, smi, n_frames=STREAM_FRAMES, hz=STREAM_HZ, hw=STREAM_HW, n
     return launches, processed
 
 
+SHARDED_CLUSTERS = (  # (backend, world, kinds): one cluster each, every kind it runs
+    ("gloo", 1, ("ba", "pg")),
+    ("gloo", 2, ("ba", "ba-obs", "pg", "fe")),
+    ("gloo", 4, ("ba", "pg")),
+    ("nccl", 1, ("ba", "pg")),
+)
+SHARDED_PG_KFS = 2048  # phase 9's keyframe capacity (the tool's default is 512)
+NCCL_PROBE = """
+import datetime, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[2], rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.full((4,), rank + 1.0, device="cuda:0")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("NCCL_RAN", x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def nccl_shared_card_probe() -> str:
+    """Two raw NCCL ranks on cuda:0, outside `init_group` (which refuses
+    them): what NCCL itself does with a shared card. Returns its answer
+    (the error lines, or that it ran); both processes end within 120 s."""
+    with tempfile.TemporaryDirectory() as d:
+        init = Path(d, "rendezvous").as_uri()
+        procs = [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, str(r), init], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=120)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + "\n[probe killed after 120 s]")
+    rcs = [p.returncode for p in procs]
+    if all(rc == 0 and "NCCL_RAN" in out for rc, out in zip(rcs, outs)):
+        return f"ran: both ranks finished an all_reduce on one card ({outs[0].strip().splitlines()[-1]})"
+    keys = ("Duplicate GPU", "ncclInvalidUsage", "NCCL error", "Error", "killed")
+    lines = [ln.strip() for out in outs for ln in out.splitlines() if any(k in ln for k in keys)]
+    return f"refused (rcs {rcs}): " + " | ".join(dict.fromkeys(lines[:6]))
+
+
+def sharded_phase(ex, pairs, dev, smi) -> tuple:
+    """Phase 15: the sharded solvers through `dist_fake_cluster` ranks on
+    `dev` (the card); first the kernel on one rank's front-end batch.
+    Returns (FAST+NMS launches, the kernel's times on that batch, rows)."""
+    import torch
+
+    from my_orb_slam2_tpu_torch import dist_fake_cluster as fc
+
+    per_rank = fc.FE_FRAMES // 2  # world 2's batch a rank
+    batch = torch.empty((per_rank, ex.atlas_h, ex.atlas_w), device=dev)
+    for i in range(per_rank):
+        ex.build_atlas(torch.as_tensor(pairs[i][0]).to(batch.device, torch.float32), out=batch[i])
+    kt = kernel_check(f"one rank's front-end batch (phase 5's left images {per_rank} of {fc.FE_FRAMES})", batch,
+                      float(ex.cfg.min_th_fast), smi)
+    del batch
+    torch.cuda.empty_cache()
+
+    try:
+        fc.run_cluster("nccl", dev.type, 2, ["ba"])
+    except RuntimeError as err:
+        print(f"sharded: NCCL at world 2 on {torch.cuda.device_count()} card(s): init_group raises: {err}")
+    else:
+        raise SystemExit("NCCL with more ranks than cards did not raise")
+    t0 = time.perf_counter()
+    print(f"sharded: NCCL's own answer to two ranks on cuda:0: {nccl_shared_card_probe()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    rows = []
+    for backend, world, kinds in SHARDED_CLUSTERS:
+        t0 = time.perf_counter()
+        got = fc.run_cluster(backend, dev.type, world, kinds, kfs=SHARDED_PG_KFS)
+        print(f"sharded: {backend} world {world} ({','.join(kinds)}) took {time.perf_counter() - t0:.1f} s")
+        for r in got:
+            if r["kind"] == "fe":
+                what = (f"{r['images']} images {r['shape']}, {r['batch_per_rank']} a rank, {r['ms_per_batch']:.2f} "
+                        f"ms a batch, equal to the single-device extractor on {r['images_equal_single']}/"
+                        f"{r['images']}, fast_nms launches {r['fast_nms_launches']}")
+            elif r["kind"] == "pg":
+                what = (f"{r['kfs']} KF / {r['n_edges']} edges, {r['ms_per_pg']:.2f} ms a solve, "
+                        f"{r['ms_per_iter']:.3f} ms a GN step, rel_err_vs_single {r['rel_err_vs_single']:.3e}")
+            else:
+                what = (f"{r['cams']} cameras / {r['n_obs']} observations, {r['ms_per_ba']:.2f} ms a solve, "
+                        f"{r['ms_per_iter']:.3f} ms an LM step, median_pt_err_vs_single "
+                        f"{r['median_pt_err_vs_single']:.3e}, max_cam_err_vs_single {r['max_cam_err_vs_single']:.3e}")
+            extra = "" if r["kind"] == "fe" else (f", all-reduces a step {r['all_reduces_per_step']:.1f} "
+                                                   f"({r['all_reduce_bytes_per_step'] / 1e3:.1f} kB)")
+            print(f"  {r['kind']} {backend} x{world}: {what}{extra}, replicated bit-identical "
+                  f"{r['replicated_bit_identical']}, ok {r['ok']} [{r['card']}]")
+        rows += got
+    bad = [(r["kind"], r["backend"], r["procs"]) for r in rows if not (r["ok"] and r["replicated_bit_identical"])]
+    if bad:
+        raise SystemExit(f"sharded solvers failed their gates: {bad}")
+    fe = next(r for r in rows if r["kind"] == "fe")
+    if fe["images_equal_single"] != fc.FE_FRAMES or fe["fast_nms_launches"] != fe["procs"]:
+        raise SystemExit(f"batch front-end: {fe}")
+    return fe["fast_nms_launches"], kt, rows
+
+
+def vocab_phase(dev, smi) -> tuple:
+    """Phase 16: `make_vocab` at its defaults on the card; first the kernel
+    on world 0's (12, atlas_h, atlas_w) batch. Returns (FAST+NMS launches,
+    the kernel's times on that batch)."""
+    import torch
+
+    from my_orb_slam2_tpu_torch import make_vocab
+    from my_orb_slam2_tpu_torch.ops import fast_nms as fk
+    from my_orb_slam2_tpu_torch.ops.bow import train_tree_vocabulary
+    from my_orb_slam2_tpu_torch.ops.frontend import OrbExtractor
+    from my_orb_slam2_tpu_torch.utils import vocab_io
+    from my_orb_slam2_tpu_torch.utils.synthetic import make_world
+
+    cfg = make_vocab.mono_config()
+    ex = OrbExtractor(cfg.orb, make_vocab.H, make_vocab.W, device=dev)
+    world = make_world(seed=100)
+    n = make_vocab.FRAMES_PER_WORLD
+    batch = torch.empty((n, ex.atlas_h, ex.atlas_w), device=dev)
+    for i in range(n):
+        ex.build_atlas(torch.as_tensor(make_vocab.render_frame(world, cfg.camera, i)).to(dev, torch.float32),
+                       out=batch[i])
+    kt = kernel_check("make_vocab's world-0 batch", batch, float(cfg.orb.min_th_fast), smi)
+    del batch
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        fk.fast_nms.launches = 0
+        t0 = time.perf_counter()
+        res = make_vocab.main(["--out", f"{d}/orbvoc.npz", "--device", str(dev)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = fk.fast_nms.launches
+        voc, corpus = res["vocabulary"], res["corpus"]
+        t0 = time.perf_counter()
+        cpu = train_tree_vocabulary(corpus, k=voc.k, depth=voc.depth, iters=6, seed=0, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        same_tree = all(torch.equal(a.cpu(), b) for a, b in zip(voc.pack(), cpu.pack()))
+        desc = torch.tensor(np.ascontiguousarray(corpus).view(np.int32), device=dev)
+        words = voc.words(desc)
+        vocab_io.save_dbow2_text(voc, f"{d}/orbvoc.txt")
+        trips = {"npz": vocab_io.load_packed(res["path"], device=dev),
+                 "text": vocab_io.load_dbow2_text(f"{d}/orbvoc.txt", device=dev)}
+        kept = {k: bool(torch.equal(v.words(desc), words)) for k, v in trips.items()}
+    n_worlds = 96 // n
+    print(f"vocab: make_vocab at its defaults: corpus {corpus.shape[0]} descriptors from {res['frames']} frames, "
+          f"extraction {res['extract_s']:.2f} s, training on the card {res['train_s']:.3f} s (k={voc.k} L={voc.depth}, "
+          f"{voc.n_words} words), the whole run {run_s:.1f} s; the CPU's training {cpu_s:.2f} s, card tree equal "
+          f"to the CPU's {same_tree}; words kept by npz {kept['npz']}, by DBoW2 text {kept['text']}; held-out frame "
+          f"{res['held_out_words']} distinct words / {res['held_out_keypoints']} keypoints; fast_nms launches "
+          f"{res['corpus_launches']} for the corpus, {launches} with the held-out frame [{smi}]")
+    if not (same_tree and all(kept.values())):
+        raise SystemExit("vocabulary: the card's tree differs from the CPU's, or a round trip lost a word")
+    if res["corpus_launches"] != n_worlds or launches != n_worlds + 1:
+        raise SystemExit(f"make_vocab launched FAST+NMS {res['corpus_launches']} times for {n_worlds} worlds "
+                         f"({launches} with the held-out frame)")
+    return launches, kt
+
+
 def main() -> int:
     import torch
 
@@ -1234,6 +1422,14 @@ def main() -> int:
     t14 = time.perf_counter() - t0 - t12 - t13
     print(f"phases 12-14 took {t12:.1f} + {t13:.1f} + {t14:.1f} = {t12 + t13 + t14:.1f} s; fast_nms launches "
           f"{kitti_launches} / {euroc_launches} / {stream_launches}")
+    # 15. sharded solvers; 16. vocabulary training ----------------------------
+    t0 = time.perf_counter()
+    sharded_launches, dist_t, _ = sharded_phase(ex, pairs, dev, smi)
+    t15 = time.perf_counter() - t0
+    vocab_launches, vocab_t = vocab_phase(dev, smi)
+    t16 = time.perf_counter() - t0 - t15
+    print(f"phases 15-16 took {t15:.1f} + {t16:.1f} = {t15 + t16:.1f} s; fast_nms launches {sharded_launches} "
+          f"(summed over the front-end's ranks) / {vocab_launches}")
     new_launches = kitti_launches + euroc_launches + stream_launches
     # phases 5, 5b, 6, 8 and 10-14 feed images; 7 and 9 keypoint frames
     image_frames = (4 * N_FRAMES + RGBD_FRAMES + len(MONO_DEPTHS) * MONO_FRAMES + kitti_frames + euroc_frames
@@ -1241,7 +1437,7 @@ def main() -> int:
     per_frame = (launches + pipe_launches + map_launches + sys_launches + rgbd_launches + mono_launches
                  + new_launches) / image_frames
     launches += pipe_launches + map_launches + cap_launches + sys_launches + loop_launches + rgbd_launches
-    launches += mono_launches + new_launches
+    launches += mono_launches + new_launches + sharded_launches + vocab_launches
 
     main_t, atlas_t = timed["L+R batch"], timed["bench atlas"]  # the main path launches on the L+R batch
     print(json.dumps({"kernels": [{
@@ -1251,7 +1447,8 @@ def main() -> int:
         "replaces": "my_orb_slam2_tpu/ops/fast_pallas.py:109",
         "launches": launches,
         "launches_per_frame": per_frame,
-        "max_abs_err": max(max_err, mono_t["max_abs_err"], kitti_t["max_abs_err"], euroc_t["max_abs_err"]),
+        "max_abs_err": max(max_err, mono_t["max_abs_err"], kitti_t["max_abs_err"], euroc_t["max_abs_err"],
+                           dist_t["max_abs_err"], vocab_t["max_abs_err"]),
         "shape": list(inputs["L+R batch"].shape),
         "ms": main_t["events_ms"],
         "device_ms": main_t["device_ms"],
@@ -1264,6 +1461,8 @@ def main() -> int:
         "mono_atlas": {k: mono_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
         "kitti_batch": {k: kitti_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
         "euroc_batch": {k: euroc_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
+        "dist_batch": {k: dist_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
+        "vocab_batch": {k: vocab_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

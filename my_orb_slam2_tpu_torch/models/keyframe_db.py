@@ -192,3 +192,11 @@ def detect_reloc_candidates(db: KfDatabase, state: ms.MapState, words, valid, ma
     ok = shared > min_common
     top_sc, top_id = topk_stable(_group_accumulate(scores, ok, state.covis), max_candidates)
     return torch.where(top_sc > 0, top_id, -1), top_sc
+
+
+def score_between(db: KfDatabase, kf_a, kf_b):
+    """Pairwise BoW score between two keyframes: keyframe kf_a's counts
+    queried against the database, read at kf_b (the reference's
+    min-score floor, src/LoopClosing.cc:140-154)."""
+    scores, _ = _query_scores_from_counts(db, db.kf_bow[kf_a])
+    return scores[kf_b]

@@ -139,14 +139,20 @@ def test_run_dataset_writes_trajectories(sequences, tmp_path):
 
 def test_port_imports_nothing_of_jax():
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, subprocess, multiprocessing\n"
         "sys.modules['jax'] = None\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('importing started a process')\n"
+        "subprocess.Popen.__init__ = refuse\n"
+        "multiprocessing.Process.start = refuse\n"
         "import my_orb_slam2_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names + ['chip_smoke']:\n"
         "    importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'my_orb_slam2_tpu' or m.startswith('my_orb_slam2_tpu.'))\n"
         "assert not bad, bad\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing started a process group'\n"
         "print(len(names))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -155,7 +161,9 @@ def test_port_imports_nothing_of_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     assert int(res.stdout) >= 48  # the count is all it prints: importing drove nothing
     names = [m.name for m in pkgutil.walk_packages(["my_orb_slam2_tpu_torch"], "my_orb_slam2_tpu_torch.")]
-    for mod in ("run_stream", "synthetic_drive", "ar_demo", "utils.stream", "utils.viz", "utils.ar", "utils.profiling"):
+    for mod in ("run_stream", "synthetic_drive", "ar_demo", "utils.stream", "utils.viz", "utils.ar", "utils.profiling",
+                "parallel.group", "parallel.dist_ba", "parallel.dist_pose_graph", "parallel.dist_frontend",
+                "dist_fake_cluster", "make_vocab"):
         assert f"my_orb_slam2_tpu_torch.{mod}" in names, mod
 
 
