@@ -190,30 +190,32 @@ Phases (any failure raises, so the exit code is non-zero):
    essential graph against its plain version (index_add_) within the f32
    summation bound, against itself and against the CPU's sequential
    index_add_ (torch.equal), with the atomic index_add_'s run-to-run
-   difference (printed), timed with its bound; ba.bundle_adjust and
+   difference (printed), the route its shape takes, timed with its bytes
+   bound (of its live rows) and its chain floor, and the other route on the same input
+   (torch.equal, timed); ba.bundle_adjust and
    pose_graph.optimize_pose_graph twice on those inputs, torch.equal.
 
-Phases 17-19, then 15-16, run one after another in a child process
-(`chip_smoke.py --child 17,18,19,15,16`) started after phase 4, beside
-phases 5-13 on the same card, and joined before phase 14 (the live stream
-reads the wall clock). Run after phase 14 they would not fit the time
-limit, so the host-clock numbers of phases 5-13 (fps, track_ms, the ms of
-a closure, a relocalization, a GBA tick) and those of phases 15-19 are
-taken with both processes on the card: after the join, phase 5 runs again
-on the idle card and prints both fps. Every kernel timing of the
+Phases 17-19, 15-16, then 10 run one after another in a child process
+(`chip_smoke.py --child 17,18,19,15,16,10`) started after phase 4, beside
+phases 5-9 and 11-13 on the same card, and joined before phase 14 (the
+live stream reads the wall clock). Run after phase 14 they would not fit
+the time limit, so the host-clock numbers of phases 5-13 (fps, track_ms,
+the ms of a closure, a relocalization, a GBA tick) and those of phases
+15-19 are taken with both processes on the card: after the join, phase 5
+runs again on the idle card and prints both fps. Every kernel timing of the
 `kernels` line is taken on the idle card: phase 3's before the child
 starts, those of phases 11-13 and 15-19 (on their inputs, rebuilt in the
 parent) after the join.
 
 Each drive sets the kernel's launch counter to 0 just before it and reads
-it just after (phases 15-19 in their child process, which prints it); phases 5, 5b, 6, 8, 10, 12 and 13 must launch it exactly
+it just after (phases 10 and 15-19 in their child process, which prints it); phases 5, 5b, 6, 8, 10, 12 and 13 must launch it exactly
 once a frame, phase 11 once an image and phase 14 once a processed
 frame (phase 14 counts in its serve process, which prints the count);
 phase 15 once a rank (counted in the ranks), phase 16 once a world and
 phases 17-19 once an image frame. The segment-sum kernel's launches are
-counted the same way in phases 8, 9, 11 and 15-19, and gated above 0 in
-phases 9 and 17 (each applies a global BA), 11 and 18 (a monocular
-initialization's global BA) and 15 (the sharded solves).
+counted the same way in phases 8, 9, 11 and 15-19, by route too, and
+gated above 0 in phases 9 and 17 (each applies a global BA), 11 and 18 (a
+monocular initialization's global BA) and 15 (the sharded solves).
 Phases 5 and 5b print their fps with its spread (the fps of each quarter
 of the timed frames). Phases 8 and 9 time the relocalization, the loop
 closure (detection resolve -> Sim3 -> correction) and each GBA tick
@@ -1257,11 +1259,12 @@ def sharded_phase(dev, smi) -> dict:
         raise SystemExit(f"batch front-end: {fe}")
     solves = [r for r in rows if r["kind"] != "fe"]
     seg = sum(r["segment_sum_launches"] for r in solves)
-    print(f"sharded: segment_sum launches in the ranks' solves {seg} "
+    seg_long = sum(r["segment_sum_long_launches"] for r in solves)
+    print(f"sharded: segment_sum launches in the ranks' solves {seg}, {seg_long} of them by the long route "
           f"({', '.join(str(r['segment_sum_launches']) for r in solves)})")
     if not all(r["segment_sum_launches"] > 0 for r in solves):
         raise SystemExit("a sharded solve on the card did not launch the segment-sum kernel")
-    return {"launches": fe["fast_nms_launches"], "segment_sum_launches": seg}
+    return {"launches": fe["fast_nms_launches"], "segment_sum_launches": seg, "segment_sum_long_launches": seg_long}
 
 
 def vocab_kernel_check(dev, smi) -> dict:
@@ -1582,13 +1585,14 @@ def _capture_solver_inputs(captured: dict):
 
 
 def _sum_bound(n_rows: int, k: int, n_seg: int) -> tuple:
-    """Bytes and adds a segment sum must take: each value (f32) and its
-    segment index (int64) read once, each output (f32) written once; one
-    add a value."""
+    """Bytes and adds a segment sum of `n_rows` live rows must take
+    (`segment_sum.work`): each value (f32) and its segment index (int64)
+    read once, each output (f32) written once; one add a value."""
+    from my_orb_slam2_tpu_torch.ops import segment_sum
     from my_orb_slam2_tpu_torch.utils import kernel_timing
 
-    n_bytes = n_rows * k * 4 + n_rows * 8 + n_seg * k * 4
-    return (n_bytes, *kernel_timing.bound_ms(n_bytes, n_rows * k))
+    w = segment_sum.work(n_rows, k, n_seg)
+    return (w["bytes"], *kernel_timing.bound_ms(w["bytes"], w["ops"]))
 
 
 def segment_sum_cases(captured) -> dict:
@@ -1642,8 +1646,11 @@ def parity_kernels(captured, dev, smi) -> dict:
     tick and essential graph against its plain version (index_add_, atomic
     on the card) within the f32 summation bound 2 (n - 1) u sum|x| (n the
     longest segment, u = 2^-24), against itself and against the CPU's
-    sequential index_add_ (torch.equal), timed beside index_add_ and
-    its bound; the atomic index_add_'s run-to-run difference (reported);
+    sequential index_add_ (torch.equal), with the route its shape takes,
+    timed beside index_add_, its bytes bound and its chain floor (the
+    longest segment's dependent adds), and the other route on the same
+    input (torch.equal to it, timed for the record); the atomic
+    index_add_'s run-to-run difference (reported);
     ba.bundle_adjust and pose_graph.optimize_pose_graph twice on the card
     on the same inputs (torch.equal). Returns the kernels-line fields."""
     import torch
@@ -1662,12 +1669,11 @@ def parity_kernels(captured, dev, smi) -> dict:
 
     cases, timed = segment_sum_cases(captured), {}
     for name, (seg, vals) in cases.items():
-        n0 = ss.segment_sum.launches
+        n0, l0 = ss.segment_sum.launches, ss.segment_sum.long_launches
         a, b = ss.segment_sum(seg, vals), ss.segment_sum(seg, vals)
         p1, p2 = ss.plain(seg, vals), ss.plain(seg, vals)
         torch.cuda.synchronize()
         launched = ss.segment_sum.launches - n0
-        ss.segment_sum.launches = n0  # comparison launches are not the main path's
         cpu = ss.segment_sum(ss.segments(seg.n, seg.idx.cpu()), vals.cpu())
         abs_sum = ss.plain(seg, vals.abs())
         n_max = int((seg.offsets[1:] - seg.offsets[:-1]).max())
@@ -1677,32 +1683,44 @@ def parity_kernels(captured, dev, smi) -> dict:
         repeat, cpu_equal = torch.equal(a, b), torch.equal(a.cpu(), cpu)
         atomic = float((p1 - p2).abs().max())
         k = vals[0].numel()
-        n_bytes, bound, bound_by = _sum_bound(vals.shape[0], k, seg.n)
+        route, live = ss.route(vals.shape[0], seg.n, k), int(seg.offsets[-1])
+        n_bytes, bound, bound_by = _sum_bound(live, k, seg.n)
+        chain = kt.chain_floor_ms(n_max)
         buf = torch.zeros_like(p1)
-        t = {"device_ms": kt.profiled_kernel_ms(lambda: ss.segment_sum(seg, vals), "segment_sum_kernel")[0],
+        # The other route on the same input, for the record (route by shape
+        # is what the solvers run).
+        other = ss._launch_short if route == "long" else ss._launch_long
+        other_equal = k > ss.LONG_MAX_K or torch.equal(other(seg, vals), a)
+        t = {"route": route, "device_ms": kt.profiled_kernel_ms(lambda: ss.segment_sum(seg, vals), "segment_sum")[0],
              "graph_ms": _graph_ms_or_none(lambda: ss.segment_sum(seg, vals)),
              "events_ms": kt.events_ms(lambda: ss.segment_sum(seg, vals)),
+             "other_route_graph_ms": None if k > ss.LONG_MAX_K else _graph_ms_or_none(
+                 lambda: other(seg, vals)),
              "plain_ms": kt.events_ms(lambda: ss.plain(seg, vals)),
              "library_ms": kt.events_ms(lambda: buf.index_add_(0, seg.idx, vals)),
-             "layout_ms": kt.events_ms(lambda: ss.csr(seg.n, seg.idx)),
-             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": float((a.cpu() - cpu).abs().max()),
-             "max_abs_err_vs_atomic": err}
+             "layout_ms": kt.events_ms(lambda: ss.segments(seg.n, seg.idx)),
+             "bound_ms": bound, "bound_by": bound_by, "chain_floor_ms": chain, "longest_segment": n_max,
+             "live_rows": live,
+             "max_abs_err": float((a.cpu() - cpu).abs().max()), "max_abs_err_vs_atomic": err}
         t["device_ms_from"] = "profiler" if t["device_ms"] is not None else "graph replay"
         if t["device_ms"] is None:
             t["device_ms"] = t["graph_ms"]
-        ss.segment_sum.launches = n0
+        # comparison launches are not the main path's
+        ss.segment_sum.launches, ss.segment_sum.long_launches = n0, l0
         timed[name] = t
-        print(f"segment_sum [{name}]: {launched} launches, torch.equal over two launches {repeat}, equal to the "
-              f"CPU's index_add_ {cpu_equal}, max |kernel - index_add_ on the card| {err:.3e} (within the f32 "
-              f"summation bound, longest segment {n_max}: {within}), the atomic index_add_'s run-to-run max "
+        print(f"segment_sum [{name}]: route {route}, {launched} launches, torch.equal over two launches {repeat}, "
+              f"equal to the CPU's index_add_ {cpu_equal}, max |kernel - index_add_ on the card| {err:.3e} (within "
+              f"the f32 summation bound, longest segment {n_max}: {within}), the atomic index_add_'s run-to-run max "
               f"difference {atomic:.3e}; device {t['device_ms']} ms ({t['device_ms_from']}), graph replay "
-              f"{t['graph_ms']} ms/launch, events {t['events_ms']:.5f} ms/call (host enqueue included), "
+              f"{t['graph_ms']} ms/launch (the other route {t['other_route_graph_ms']} ms/launch, equal "
+              f"{other_equal}), events {t['events_ms']:.5f} ms/call (host enqueue included), "
               f"index_add_ {t['library_ms']:.5f} ms (zeros + index_add_ {t['plain_ms']:.5f}), the layout "
-              f"(argsort + searchsorted, once a solve) {t['layout_ms']:.5f} ms; bound {bound:.5f} ms by {bound_by} "
-              f"({n_bytes / 1e6:.2f} MB) [{smi}]")
-        if launched != 2 or not (repeat and within and cpu_equal):
+              f"(`segments`: argsorts and a searchsorted, once a solve) {t['layout_ms']:.5f} ms; bound {bound:.5f} "
+              f"ms by {bound_by} ({n_bytes / 1e6:.2f} MB: {live} live rows of {vals.shape[0]}), chain floor "
+              f"{chain:.5f} ms ({n_max} dependent FADDs) [{smi}]")
+        if launched != 2 or not (repeat and within and cpu_equal and other_equal):
             raise SystemExit(f"segment_sum [{name}]: launches {launched}, repeat {repeat}, within {within}, equal to "
-                             f"the CPU's index_add_ {cpu_equal}")
+                             f"the CPU's index_add_ {cpu_equal}, the other route equal {other_equal}")
 
     cfg, prob = captured["gba"]
     cam = cfg.camera
@@ -1719,16 +1737,22 @@ def parity_kernels(captured, dev, smi) -> dict:
     return timed
 
 
-# Phases 17-19, then 15-16, run in a child process beside phases 5-13
-# (which do not read the wall clock into a gate), joined before phase 14's
-# live stream: after phase 14 they would not fit the time limit.
+def rgbd_child(dev, smi) -> dict:
+    """Phase 10 in the child process: `rgbd_phase`'s FAST launches."""
+    return {"launches": rgbd_phase(dev, smi)}
+
+
+# Phases 17-19, 15-16, then 10 run in a child process beside phases 5-9
+# and 11-13 (which do not read the wall clock into a gate), joined before
+# phase 14's live stream: after phase 14 they would not fit the time limit,
+# nor phase 10 in the parent on a slow host.
 CHILD_PHASES = {"17": ring_stereo_drive, "18": ring_mono_drive, "19": vocab_scale_drive, "15": sharded_phase,
-                "16": vocab_phase}
+                "16": vocab_phase, "10": rgbd_child}
 RING_PHASES = ("17", "18", "19")  # the child's image drives
 
 
 def child_main(phases) -> int:
-    """`chip_smoke.py --child 17,18,19,15,16`: run those phases on cuda:0 (the kernel
+    """`chip_smoke.py --child 17,18,19,15,16,10`: run those phases on cuda:0 (the kernel
     library is the parent's build, loaded from the build directory) and
     print one `child result` JSON line a phase."""
     import torch
@@ -1744,9 +1768,10 @@ def child_main(phases) -> int:
     fk.build()
     for phase in phases:
         t0 = time.perf_counter()
-        ss.segment_sum.launches = 0
+        ss.segment_sum.launches = ss.segment_sum.long_launches = 0
         res = CHILD_PHASES[phase](torch.device("cuda:0"), smi)
         res.setdefault("segment_sum_launches", ss.segment_sum.launches)
+        res.setdefault("segment_sum_long_launches", ss.segment_sum.long_launches)
         seconds = time.perf_counter() - t0
         print(f"phase {phase} took {seconds:.1f} s")
         print("child result " + json.dumps({"phase": phase, "seconds": seconds, **res}), flush=True)
@@ -1927,15 +1952,15 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
 
     # 8. system drive + relocalization probe --------------------------------
     t0 = time.perf_counter()
-    ss.segment_sum.launches = 0
+    ss.segment_sum.launches = ss.segment_sum.long_launches = 0
     sys_launches = system_drive(cfg, pairs, poses, dev, smi)
-    seg_launches = {"8": ss.segment_sum.launches}
+    seg_launches, seg_long = {"8": ss.segment_sum.launches}, {"8": ss.segment_sum.long_launches}
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. loop drive (no images: the FAST kernel is not on this path) --------
     t0 = time.perf_counter()
     fk.fast_nms.launches = 0
-    ss.segment_sum.launches = 0
+    ss.segment_sum.launches = ss.segment_sum.long_launches = 0
     captured = {}
     undo = _capture_solver_inputs(captured)
     try:
@@ -1943,21 +1968,16 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
     finally:
         undo()
     loop_launches = fk.fast_nms.launches
-    seg_launches["9"] = ss.segment_sum.launches
+    seg_launches["9"], seg_long["9"] = ss.segment_sum.launches, ss.segment_sum.long_launches
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s; segment_sum launches {seg_launches['9']}")
 
-    # 10. RGB-D drive ----------------------------------------------------------
-    t0 = time.perf_counter()
-    rgbd_launches = rgbd_phase(dev, smi)
-    print(f"phase 10 took {time.perf_counter() - t0:.1f} s; fast_nms launches by drive: phase 5 {launches}, "
-          f"phase 5b {pipe_launches}, phase 6 {map_launches}, phase 7 {cap_launches}, phase 8 {sys_launches}, "
-          f"phase 9 {loop_launches}, phase 10 {rgbd_launches}")
+    # 10. RGB-D drive: in the child
 
     # 11. mono drive from disk ------------------------------------------------
     t0 = time.perf_counter()
-    ss.segment_sum.launches = 0
+    ss.segment_sum.launches = ss.segment_sum.long_launches = 0
     mono_launches, mono_check = mono_phase(dev, smi)
-    seg_launches["11"] = ss.segment_sum.launches
+    seg_launches["11"], seg_long["11"] = ss.segment_sum.launches, ss.segment_sum.long_launches
     print(f"phase 11 took {time.perf_counter() - t0:.1f} s; fast_nms launches {mono_launches} over "
           f"{len(MONO_DEPTHS)} runs")
 
@@ -1967,14 +1987,18 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
     t12 = time.perf_counter() - t0
     euroc_launches, euroc_frames, euroc_check = stereo_phase("euroc", dev, smi)
     t13 = time.perf_counter() - t0 - t12
-    # 17-19 and 15-16 joined (the live stream reads the wall clock); then, on
-    # the idle card, the kernel on the inputs of phases 11-13 and 15-19 and
-    # phase 5 again
+    # 17-19, 15-16 and 10 joined (the live stream reads the wall clock);
+    # then, on the idle card, the kernel on the inputs of phases 11-13 and
+    # 15-19 and phase 5 again
     t0 = time.perf_counter()
     child_res = finish_child(child, timeout=900)
-    print(f"phases 17-19 and 15-16 ran beside phases 5-13 for {time.perf_counter() - t_child:.1f} s; the wait for "
-          f"them after phase 13 {time.perf_counter() - t0:.1f} s; " + ", ".join(
+    print(f"phases {', '.join(CHILD_PHASES)} ran beside phases 5-9 and 11-13 for {time.perf_counter() - t_child:.1f} "
+          f"s; the wait for them after phase 13 {time.perf_counter() - t0:.1f} s; " + ", ".join(
               f"phase {p} {child_res[p]['seconds']:.1f} s" for p in CHILD_PHASES))
+    rgbd_launches = child_res["10"]["launches"]
+    print(f"fast_nms launches by drive: phase 5 {launches}, phase 5b {pipe_launches}, phase 6 {map_launches}, "
+          f"phase 7 {cap_launches}, phase 8 {sys_launches}, phase 9 {loop_launches}, phase 10 {rgbd_launches} (in "
+          f"the child)")
     mono_t, kitti_t, euroc_t = (kernel_check(*c, smi) for c in (mono_check, kitti_check, euroc_check))
     del mono_check, kitti_check, euroc_check
     # 20 (second part), on the idle card: draws, the segment-sum kernel, the solvers twice
@@ -2005,8 +2029,10 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
           f"fast_nms launches {sharded_launches} (summed over the front-end's ranks) / {vocab_launches}")
     ring_launches = sum(child_res[p]["launches"] for p in RING_PHASES)
     seg_launches.update({p: child_res[p]["segment_sum_launches"] for p in CHILD_PHASES})
+    seg_long.update({p: child_res[p]["segment_sum_long_launches"] for p in CHILD_PHASES})
     print(f"segment_sum launches by drive: {seg_launches} (gated > 0 in phases 9 and 17, each with >= 1 GBA; 11 and "
-          f"18, each with a monocular initialization's global BA; 15, the sharded solves)")
+          f"18, each with a monocular initialization's global BA; 15, the sharded solves); by route, long "
+          f"{seg_long}, short {({p: seg_launches[p] - seg_long[p] for p in seg_launches})}")
     if not all(seg_launches[p] > 0 for p in ("9", "11", "15", "17", "18")):
         raise SystemExit(f"a drive whose path sums through the segment-sum kernel launched it no time: {seg_launches}")
     ring_images = sum(child_res[p]["images"] for p in RING_PHASES)
@@ -2029,6 +2055,7 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
                     "my_orb_slam2_tpu/ops/ba.py:201-290, my_orb_slam2_tpu/ops/pose_graph.py:74)",
         "launches": sum(seg_launches.values()),
         "launches_by_phase": seg_launches,
+        "long_route_launches_by_phase": seg_long,
         "max_abs_err": max(t["max_abs_err"] for t in seg_t.values()),
         "shape": next(iter(seg_t)),
         "ms": seg_main["device_ms"] if seg_main["device_ms"] is not None else seg_main["events_ms"],

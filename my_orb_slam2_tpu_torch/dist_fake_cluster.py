@@ -213,12 +213,14 @@ def _replicated_identical(group, *tensors) -> bool:
 
 def _timed_counting(group, solve, reps: int, n_steps: int):
     """`_timed`, and the segment-sum kernel's launches over all its calls,
-    summed over the ranks (0 on the CPU)."""
+    all and those of its long route, summed over the ranks (0 on the
+    CPU)."""
     from my_orb_slam2_tpu_torch.ops.segment_sum import segment_sum
 
-    segment_sum.launches = 0
+    segment_sum.launches = segment_sum.long_launches = 0
     res = _timed(group, solve, reps, n_steps)
-    return (*res, int(group.psum(torch.tensor([segment_sum.launches], device=group.device)).item()))
+    counts = group.psum(torch.tensor([segment_sum.launches, segment_sum.long_launches], device=group.device))
+    return (*res, *(int(c) for c in counts.tolist()))
 
 
 def _timed(group, solve, reps: int, n_steps: int):
@@ -250,7 +252,7 @@ def run_ba(group, args, layout: str) -> dict:
         prob_p = dist_ba.pad_problem_for_mesh(prob_np, group.world)
         shard = dist_ba.observation_shard(prob_p, group.rank, group.world, group.device)
         solver = dist_ba.make_distributed_ba(group)
-    out, ms, n_ar, ar_bytes, launches = _timed_counting(
+    out, ms, n_ar, ar_bytes, launches, long_launches = _timed_counting(
         group, lambda: solver(shard, FX, FY, CX, CY, BF, n_iters=BA_ITERS, cg_iters=BA_CG_ITERS), REPS, BA_ITERS
     )
     if layout == "ba":  # cameras sharded, points replicated
@@ -260,7 +262,7 @@ def run_ba(group, args, layout: str) -> dict:
     row = {"kind": layout, "procs": group.world, "cams": N_CAMS, "n_obs": int(prob_np.obs_cam.shape[0]),
            "ms_per_ba": ms, "ms_per_iter": ms / BA_ITERS, "all_reduces_per_step": n_ar,
            "all_reduce_bytes_per_step": ar_bytes, "replicated_bit_identical": same,
-           "segment_sum_launches": launches}
+           "segment_sum_launches": launches, "segment_sum_long_launches": long_launches}
     if group.rank == 0:
         ref = ba_ops.bundle_adjust(flat_ba_problem_from_numpy(prob_p, group.device), FX, FY, CX, CY, BF,
                                    n_iters=BA_ITERS, cg_iters=BA_CG_ITERS)
@@ -281,7 +283,7 @@ def run_pg(group, args) -> dict:
     S, vvalid, vfixed = (torch.tensor(x, device=dev) for x in pg_np[:3])
     edges = dpg.edge_shard(*dpg.pad_edges_for_mesh(*pg_np[3:], group.world), group.rank, group.world, dev)
     solver = dpg.make_distributed_pose_graph(group)
-    out, ms, n_ar, ar_bytes, launches = _timed_counting(
+    out, ms, n_ar, ar_bytes, launches, long_launches = _timed_counting(
         group, lambda: solver(S, vvalid, vfixed, *edges, n_iters=PG_ITERS, cg_iters=PG_CG_ITERS, fix_scale=True),
         REPS, PG_ITERS,
     )
@@ -289,7 +291,7 @@ def run_pg(group, args) -> dict:
     row = {"kind": "pg", "procs": group.world, "kfs": args.kfs, "n_edges": int(pg_np[3].shape[0]),
            "ms_per_pg": ms, "ms_per_iter": ms / PG_ITERS, "all_reduces_per_step": n_ar,
            "all_reduce_bytes_per_step": ar_bytes, "replicated_bit_identical": same,
-           "segment_sum_launches": launches}
+           "segment_sum_launches": launches, "segment_sum_long_launches": long_launches}
     if group.rank == 0:
         single = pose_graph.optimize_pose_graph(
             *(torch.tensor(x, device=dev) for x in pg_np[:3]),

@@ -22,6 +22,10 @@ import torch
 
 
 def _profile(fn, n_warm: int = 2, n_timed: int = 5):
+    """One call of `fn` timed and traced: a summary line (host wall, device
+    kernel time, idle share, kernel / launch / sync counts, and the device
+    time of the segment-sum kernels with its share) and the profiler's
+    top-op tables."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(n_warm):
@@ -43,9 +47,12 @@ def _profile(fn, n_warm: int = 2, n_timed: int = 5):
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3
     launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC") for e in events)
     syncs = sum(e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize") for e in events)
+    named = [e for e in kernels if "segment_sum" in e.name]
+    named_ms = sum(e.device_time_total for e in named) / 1e3
     summary = (f"host wall {statistics.median(walls):.2f} ms (median of {n_timed}), traced wall {wall:.2f} ms, "
                f"device kernel time {dev_ms:.2f} ms, idle share {1 - dev_ms / wall:.3f}, kernels {len(kernels)}, "
-               f"launch calls {launches}, stream syncs {syncs}")
+               f"launch calls {launches}, stream syncs {syncs}; segment_sum: {len(named)} kernels, {named_ms:.2f} ms, "
+               f"share {named_ms / dev_ms if dev_ms else 0.0:.3f} of the device time")
     avg = prof.key_averages()
     tables = avg.table(sort_by="self_device_time_total", row_limit=15) + "\n" + avg.table(
         sort_by="self_cpu_time_total", row_limit=10)

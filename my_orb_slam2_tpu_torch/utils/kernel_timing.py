@@ -16,7 +16,8 @@ helpers take the three numbers apart:
 
 Each needs a CUDA device; `fn` is a callable that launches the kernel on
 the current stream and returns its output. `bound_ms` gives the least time
-the card could take for a given work, from the H100 SXM's published peaks.
+the card could take for a given work, from the H100 SXM's published peaks;
+`chain_floor_ms` the least time of a chain of dependent float adds.
 `count_syncs` counts the host syncs of a block of code.
 """
 
@@ -32,6 +33,10 @@ import torch
 # NVIDIA H100 SXM, dense, at its 700 W limit (NVIDIA's data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# A dependent FADD waits for the one before it: 4 cycles on Volta and later
+# SMs, at the H100 SXM's 1980 MHz maximum SM clock (NVIDIA's data sheet).
+FADD_LATENCY_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -40,6 +45,12 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def chain_floor_ms(n_adds: int) -> float:
+    """The least time (ms) of `n_adds` float adds each of which waits for
+    the one before: a fixed-order sum's longest chain."""
+    return n_adds * FADD_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3
 
 
 def profiled_kernel_ms(fn, kernel_name: str, n: int = 20, warmup: int = 3) -> tuple[float | None, int]:

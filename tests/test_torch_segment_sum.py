@@ -8,11 +8,17 @@
   (both add the rows in order on the CPU: in practice the bits agree).
 - The pose graph's two-ended sum keeps its "edge_i, then edge_j" order
   bit for bit on the CPU.
+- The route is chosen from shapes alone; the long route's block order
+  (segments by length, longest first) against numpy's stable argsort.
 - `cuda` cases: the kernel (padding left out of its layout) against the
   plain version on the CPU, which adds the padding's zeros (torch.equal:
   it sums in the CPU's order), and against itself twice, the
-  launch counter, and a refused input. They skip without a card; jax is
-  imported inside the tests that use it, so
+  launch counter, and a refused input. Both routes, on layouts that break
+  a careless kernel (one segment of every row, empty first and last
+  segments, segments of one row, masked padding, row counts off the stage
+  size, rows of 4 to 196 B), and an order witness: values on which a
+  reversed or pairwise sum gives other bits than index_add_. They skip
+  without a card; jax is imported inside the tests that use it, so
   python -m pytest --noconftest tests/test_torch_segment_sum.py -m cuda
   runs on a machine without it.
 """
@@ -111,6 +117,28 @@ def test_kernel_refuses_cpu_tensors():
     assert ss.segment_sum.launches == n0  # the plain version launches nothing
 
 
+@pytest.mark.parametrize("n, dist", [(7, "uniform"), (50, "sparse"), (3, "single"), (5, "empty"), (2048, "cameras")])
+def test_longest_first_matches_numpy(n, dist):
+    rng = np.random.default_rng(n)
+    idx = {"uniform": rng.integers(0, n, 400), "sparse": rng.choice([0, 9, 49], 200), "single": np.full(30, 1),
+           "empty": np.zeros(0, np.int64), "cameras": np.repeat(np.arange(160), rng.integers(800, 1659, 160))}[dist]
+    _, offsets = ss.csr(n, torch.tensor(idx))
+    counts = np.bincount(idx, minlength=n)
+    assert ss.longest_first(offsets).tolist() == np.argsort(-counts, kind="stable").tolist()
+
+
+def test_route_is_chosen_from_shapes():
+    # a GBA tick at the loop drive's capacity: camera sums long, point sums
+    # short; the pose graph's 4 rows a keyframe on average short; rows of
+    # more than LONG_MAX_K components short
+    assert ss.route(262_144, 2048, 36) == ss.route(262_144, 2048, 6) == "long"
+    assert ss.route(262_144, 262_144, 9) == ss.route(262_144, 262_144 * 2048, 18) == "short"
+    assert ss.route(8192, 2048, 49) == "short"
+    assert ss.route(262_144, 2048, ss.LONG_MAX_K + 1) == "short"
+    assert ss.route(ss.LONG_MIN_MEAN * 5, 5, 1) == "long" and ss.route(ss.LONG_MIN_MEAN * 5 - 1, 5, 1) == "short"
+    assert ss.segments(2048, torch.zeros(262_144, dtype=torch.int64)).longest_first is None  # the CPU: no layout
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["cameras", "points", "blocks"])
 def test_kernel_equals_cpu_and_repeats(cuda, which):
@@ -134,3 +162,101 @@ def test_kernel_refuses_other_dtypes(cuda):
     seg = ss.segments(3, torch.tensor([0, 2, 2], device=cuda))
     with pytest.raises(ValueError):
         ss.segment_sum(seg, torch.ones(3, 6, dtype=torch.float64, device=cuda))
+
+
+def _layout(name, rng):
+    """(n, row -> segment index, live mask) of a layout that breaks a
+    careless kernel."""
+    if name == "one segment of every row":  # 100,003 rows: off every stage size; segments 0 and 2 empty
+        return 3, np.ones(100_003, np.int64), np.ones(100_003, bool)
+    if name == "empty ends, single rows":  # segments 0 and n - 1 empty, most of the rest one row
+        n = 400
+        idx = np.concatenate([np.arange(1, n - 1), rng.integers(1, 20, 5000)])
+        return n, rng.permutation(idx), np.ones(idx.shape[0], bool)
+    if name == "cameras, masked padding":  # contiguous cameras, 3 empty, then padding at index 0
+        lengths = rng.integers(0, 700, 61)
+        lengths[[0, 17, 60]] = 0
+        idx = np.concatenate([np.repeat(np.arange(61), lengths), np.zeros(3001, np.int64)])
+        live = np.arange(idx.shape[0]) < lengths.sum()
+        return 64, idx, live
+    raise ValueError(name)
+
+
+LAYOUTS = ["one segment of every row", "empty ends, single rows", "cameras, masked padding"]
+
+
+def _card_and_cpu(cuda, n, idx, live, vals):
+    """The layout on the card and the CPU's index_add_ of every row (the
+    padding adds zeros)."""
+    seg = ss.segments(n, torch.tensor(idx, device=cuda), torch.tensor(live, device=cuda))
+    return seg, torch.zeros((n,) + vals.shape[1:]).index_add_(0, torch.tensor(idx), torch.tensor(vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("k", [1, 3, 6, 7, 9, 36, 49, 64, 100, 127, ss.LONG_MAX_K])
+def test_both_routes_equal_cpu_on_hard_layouts(cuda, layout, k):
+    rng = np.random.default_rng(k)
+    n, idx, live = _layout(layout, rng)
+    vals = np.where(live[:, None], rng.normal(size=(idx.shape[0], k)), 0.0).astype(np.float32)
+    seg, want = _card_and_cpu(cuda, n, idx, live, vals)
+    x = torch.tensor(vals, device=cuda)
+    for name, launch in (("long", ss._launch_long), ("short", ss._launch_short), ("by shape", ss._launch)):
+        a, b = launch(seg, x), launch(seg, x)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+        assert torch.equal(a.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_unaligned_base_takes_narrow_copies(cuda):
+    # a view one float into its storage: 16 B rows whose base is 4 B aligned
+    rng = np.random.default_rng(5)
+    n, idx, live = _layout("cameras, masked padding", rng)
+    vals = np.where(live[:, None], rng.normal(size=(idx.shape[0], 4)), 0.0).astype(np.float32)
+    seg, want = _card_and_cpu(cuda, n, idx, live, vals)
+    store = torch.empty(vals.size + 1, device=cuda)
+    x = store[1:].view(vals.shape)
+    x.copy_(torch.tensor(vals))
+    assert x.data_ptr() % 16 == 4
+    assert torch.equal(ss._launch_long(seg, x).cpu(), want)
+
+
+def _pairwise(v):
+    """A tree sum of each column of v (f32), as a reassociating kernel
+    would take it."""
+    v = v.astype(np.float32)
+    while v.shape[0] > 1:
+        if v.shape[0] % 2:
+            v = np.concatenate([v, np.zeros((1,) + v.shape[1:], np.float32)])
+        v = (v[0::2] + v[1::2]).astype(np.float32)
+    return v[0] if v.shape[0] else np.zeros(v.shape[1:], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_segment", [5, 1500])
+def test_order_witness(cuda, rows_per_segment):
+    # 1e8 beside 1: f32 keeps 1e8 + 1 as 1e8, so where the ones fall in the
+    # chain decides the sum's bits
+    rng = np.random.default_rng(rows_per_segment)
+    n = 64
+    idx = np.repeat(np.arange(n), rows_per_segment)
+    vals = rng.choice(np.array([1e8, -1e8, 1.0, -1.0, 3.0], np.float32), size=(idx.shape[0], 6)).astype(np.float32)
+    live = np.ones(idx.shape[0], bool)
+    seg, want = _card_and_cpu(cuda, n, idx, live, vals)
+    rev = torch.zeros(n, 6).index_add_(0, torch.tensor(idx[::-1].copy()), torch.tensor(vals[::-1].copy()))
+    pair = torch.tensor(np.stack([_pairwise(vals[idx == s]) for s in range(n)]))
+    assert not torch.equal(rev, want) and not torch.equal(pair, want)  # the witness sees a reordering
+    x = torch.tensor(vals, device=cuda)
+    for launch in (ss._launch_long, ss._launch_short, ss._launch):
+        assert torch.equal(launch(seg, x).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_long_route_refuses_wide_rows(cuda):
+    seg = ss.segments(2, torch.zeros(64, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError):
+        ss._launch_long(seg, torch.ones(64, ss.LONG_MAX_K + 1, device=cuda))
+    out = ss.segment_sum(seg, torch.ones(64, ss.LONG_MAX_K + 1, device=cuda))  # takes the short route
+    assert torch.equal(out.cpu(), torch.zeros(2, ss.LONG_MAX_K + 1).index_add_(0, torch.zeros(64, dtype=torch.int64),
+                                                                             torch.ones(64, ss.LONG_MAX_K + 1)))
