@@ -17,10 +17,12 @@ keyframes; `--no-loop` turns loop closing off (the raw-odometry
 baseline). The clock starts at the first frame >= 20 after the first
 local BA (the tracker flushed first) and stops after `shutdown`.
 
-`main(argv)` prints the tool's JSON fields plus the peak card memory and
-`lost_frames` (the frames whose `track` reported a state other than OK:
-the tool's count), and raises SystemExit, after printing them, when a
-frame is lost or, with loop closing on, no loop closed. `lost` is the
+`main(argv)` prints the tool's JSON fields plus the peak card memory,
+`gba_obs_dropped` (the live observations that the completed global BAs
+left out beyond their 262,144 rows) and `lost_frames` (the frames whose
+`track` reported a state other than OK: the tool's count), and raises
+SystemExit, after printing them, when a frame is lost or, with loop
+closing on, no loop closed. `lost` is the
 larger of that count and the trajectory rows logged lost (in-flight
 frames a stale-dispatch retry drops), as `chip_smoke.py` phase 9 counts.
 The fps is reported, not gated.
@@ -121,6 +123,7 @@ def run(cfg, device="cuda", n_frames: int = 2100, n_landmarks: int = 120000, slo
         "lost": int(lost),
         "loops_closed": lc.loops_closed if use_loop else 0,
         "gbas_completed": lc.gbas_completed if use_loop else 0,
+        "gba_obs_dropped": int(lc.gba_obs_dropped) if use_loop else 0,
         "kfs_inserted": int(m.n_kf),
         "kfs_live": int(m.kf_valid.sum()),
         "points": int(m.mp_valid.sum()),

@@ -22,6 +22,7 @@ from my_orb_slam2_tpu_torch.ops import stereo as stereo_ops
 from my_orb_slam2_tpu_torch.ops.frontend import GAP, OrbExtractor
 from my_orb_slam2_tpu_torch.ops.projection import undistort_points
 from my_orb_slam2_tpu_torch.utils.config import SlamConfig
+from my_orb_slam2_tpu_torch.utils.profiling import span
 
 
 class FrameData(NamedTuple):
@@ -59,38 +60,41 @@ class FrameFactory:
     def build_stereo(self, imgL, imgR) -> FrameData:
         """imgL / imgR: (H, W) grayscale arrays or tensors (uint8 uploads 4x
         less than float32; the extractor casts on the device)."""
-        cam = self.cfg.camera
-        ex = self.extractor
-        (kpsL, atlasL), (kpsR, atlasR) = ex.extract_batch([self._image(imgL), self._image(imgR)])
-        u_right, depth = stereo_ops.match_stereo(
-            kpsL.uv, kpsL.uv_level, kpsL.octave, kpsL.valid, kpsR.uv, kpsR.octave, kpsR.valid,
-            kpsL.desc, kpsR.desc, atlasL, atlasR, ex.level_offsets, ex.level_w, ex.level_h,
-            ex.scale_factors, min_d=0.0, max_d=cam.fx, bf=cam.bf, col_offset=GAP,
-        )
-        return FrameData(
-            uv=self._undistort(kpsL.uv), ur=u_right, depth=depth, octave=kpsL.octave,
-            angle=kpsL.angle, desc=kpsL.desc, valid=kpsL.valid,
-        )
+        with span("frame.build"):
+            cam = self.cfg.camera
+            ex = self.extractor
+            (kpsL, atlasL), (kpsR, atlasR) = ex.extract_batch([self._image(imgL), self._image(imgR)])
+            u_right, depth = stereo_ops.match_stereo(
+                kpsL.uv, kpsL.uv_level, kpsL.octave, kpsL.valid, kpsR.uv, kpsR.octave, kpsR.valid,
+                kpsL.desc, kpsR.desc, atlasL, atlasR, ex.level_offsets, ex.level_w, ex.level_h,
+                ex.scale_factors, min_d=0.0, max_d=cam.fx, bf=cam.bf, col_offset=GAP,
+            )
+            return FrameData(
+                uv=self._undistort(kpsL.uv), ur=u_right, depth=depth, octave=kpsL.octave,
+                angle=kpsL.angle, desc=kpsL.desc, valid=kpsL.valid,
+            )
 
     def build_rgbd(self, img, depth) -> FrameData:
         """img: (H, W) grayscale; depth: (H, W) raw depth map (any numeric
         dtype, e.g. TUM's uint16), metres = depth / depth_map_factor."""
-        cam = self.cfg.camera
-        kps, _ = self.extractor(self._image(img))
-        if isinstance(depth, torch.Tensor):
-            depth = depth.to(self.device, torch.float32)
-        else:
-            depth = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
-        u_right, d = stereo_ops.depth_to_uright(kps.uv, kps.valid, depth, cam.depth_map_factor, cam.bf)
-        return FrameData(
-            uv=self._undistort(kps.uv), ur=u_right, depth=d, octave=kps.octave,
-            angle=kps.angle, desc=kps.desc, valid=kps.valid,
-        )
+        with span("frame.build"):
+            cam = self.cfg.camera
+            kps, _ = self.extractor(self._image(img))
+            if isinstance(depth, torch.Tensor):
+                depth = depth.to(self.device, torch.float32)
+            else:
+                depth = torch.from_numpy(np.asarray(depth, np.float32)).to(self.device)
+            u_right, d = stereo_ops.depth_to_uright(kps.uv, kps.valid, depth, cam.depth_map_factor, cam.bf)
+            return FrameData(
+                uv=self._undistort(kps.uv), ur=u_right, depth=d, octave=kps.octave,
+                angle=kps.angle, desc=kps.desc, valid=kps.valid,
+            )
 
     def build_mono(self, img) -> FrameData:
-        kps, _ = self.extractor(self._image(img))
-        none = torch.full((kps.uv.shape[0],), -1.0, device=kps.uv.device)
-        return FrameData(
-            uv=self._undistort(kps.uv), ur=none, depth=none.clone(), octave=kps.octave,
-            angle=kps.angle, desc=kps.desc, valid=kps.valid,
-        )
+        with span("frame.build"):
+            kps, _ = self.extractor(self._image(img))
+            none = torch.full((kps.uv.shape[0],), -1.0, device=kps.uv.device)
+            return FrameData(
+                uv=self._undistort(kps.uv), ur=none, depth=none.clone(), octave=kps.octave,
+                angle=kps.angle, desc=kps.desc, valid=kps.valid,
+            )

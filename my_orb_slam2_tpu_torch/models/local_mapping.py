@@ -58,6 +58,7 @@ from my_orb_slam2_tpu_torch.ops.projection import (
 from my_orb_slam2_tpu_torch.ops.scatter import add_drop, nonzero_static, put_drop, set_last_wins
 from my_orb_slam2_tpu_torch.ops.stereo import _nanmedian_masked
 from my_orb_slam2_tpu_torch.utils.config import SlamConfig
+from my_orb_slam2_tpu_torch.utils.profiling import span
 from my_orb_slam2_tpu_torch.utils.steps import step
 
 INVALID = -1
@@ -1053,30 +1054,31 @@ class LocalMapper:
         }
 
     def process(self, state: ms.MapState, kf_id: int, queue_pressure: bool = False) -> ms.MapState:
-        cfg = self.cfg
-        n_neigh = (
-            cfg.mapping.triangulation_neighbors_mono if cfg.sensor.name == "MONOCULAR"
-            else cfg.mapping.triangulation_neighbors_stereo
-        )
-        state, n_new = light_pass(cfg, state, kf_id, n_neigh)
-        self._created.append(n_new)
-        self._since_full += 1
-        if queue_pressure and self._since_full < self.full_every:
-            self.last_culled_mask = None
+        with span("mapper.process"):
+            cfg = self.cfg
+            n_neigh = (
+                cfg.mapping.triangulation_neighbors_mono if cfg.sensor.name == "MONOCULAR"
+                else cfg.mapping.triangulation_neighbors_stereo
+            )
+            state, n_new = light_pass(cfg, state, kf_id, n_neigh)
+            self._created.append(n_new)
+            self._since_full += 1
+            if queue_pressure and self._since_full < self.full_every:
+                self.last_culled_mask = None
+                return state
+            self._since_full = 0
+            run_ba = self.run_ba and kf_id >= 2
+            self._since_cull += 1
+            do_cull = self.cull and self._since_cull >= self.cull_every
+            if do_cull:
+                self._since_cull = 0
+            state, culled_mask = full_pass(cfg, state, kf_id, run_ba=run_ba, cull=do_cull,
+                                           fuse_targets=self.fuse_targets)
+            if run_ba:
+                self._ba_runs += 1
+            if do_cull:
+                self.last_culled_mask = culled_mask
+                self._culled.append(culled_mask.sum())
+            else:
+                self.last_culled_mask = None
             return state
-        self._since_full = 0
-        run_ba = self.run_ba and kf_id >= 2
-        self._since_cull += 1
-        do_cull = self.cull and self._since_cull >= self.cull_every
-        if do_cull:
-            self._since_cull = 0
-        state, culled_mask = full_pass(cfg, state, kf_id, run_ba=run_ba, cull=do_cull,
-                                       fuse_targets=self.fuse_targets)
-        if run_ba:
-            self._ba_runs += 1
-        if do_cull:
-            self.last_culled_mask = culled_mask
-            self._culled.append(culled_mask.sum())
-        else:
-            self.last_culled_mask = None
-        return state

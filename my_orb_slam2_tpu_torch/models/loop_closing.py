@@ -50,6 +50,7 @@ from my_orb_slam2_tpu_torch.ops.frontend import topk_stable
 from my_orb_slam2_tpu_torch.ops.projection import frustum_check, predict_scale
 from my_orb_slam2_tpu_torch.ops.scatter import nonzero_static, put_drop, set_last_wins
 from my_orb_slam2_tpu_torch.utils.config import SlamConfig
+from my_orb_slam2_tpu_torch.utils.profiling import span
 from my_orb_slam2_tpu_torch.utils.steps import step
 
 INVALID = -1
@@ -351,15 +352,28 @@ def correct_loop_state(cfg: SlamConfig, state: ms.MapState, kf_cur: int, kf_cand
 # ---------------------------------------------------------------------------
 
 
-def extract_global_ba(cfg: SlamConfig, state: ms.MapState, max_obs: int = 262144) -> ba.BAProblem:
+GBA_MAX_OBS = 262144  # rows of the full-map BA problem
+
+
+def _live_observations(state: ms.MapState) -> torch.Tensor:
+    """(KF, N) bool: the keyframe slots that observe a valid point."""
+    MP = state.mp_pos.shape[0]
+    obs_ok = (state.kf_mp >= 0) & state.kf_kp_valid & state.kf_valid[:, None]
+    return obs_ok & torch.cat([state.mp_valid, state.mp_valid.new_zeros(1)])[torch.where(obs_ok, state.kf_mp, MP)]
+
+
+def global_ba_obs_dropped(state: ms.MapState, max_obs: int = GBA_MAX_OBS) -> torch.Tensor:
+    """The live observations that `extract_global_ba` leaves out beyond
+    max_obs: a device scalar (no host sync)."""
+    return torch.clamp(_live_observations(state).sum() - max_obs, min=0)
+
+
+def extract_global_ba(cfg: SlamConfig, state: ms.MapState, max_obs: int = GBA_MAX_OBS) -> ba.BAProblem:
     """Full-map BA problem: every valid keyframe, point and observation
     (at most max_obs, in keyframe-slot order); keyframe 0 fixed."""
     KF, N = state.kf_mp.shape
-    MP = state.mp_pos.shape[0]
     dev = state.kf_mp.device
-    obs_ok = (state.kf_mp >= 0) & state.kf_kp_valid & state.kf_valid[:, None]
-    obs_ok = obs_ok & torch.cat([state.mp_valid, state.mp_valid.new_zeros(1)])[torch.where(obs_ok, state.kf_mp, MP)]
-    sel = nonzero_static(obs_ok.reshape(-1), max_obs, KF * N)
+    sel = nonzero_static(_live_observations(state).reshape(-1), max_obs, KF * N)
     ok = sel < KF * N
     s = torch.where(ok, sel, 0)
     o_kf = torch.div(s, N, rounding_mode="floor")
@@ -420,11 +434,13 @@ def writeback_global_ba_async(cfg: SlamConfig, state: ms.MapState, prob: ba.BAPr
 
 class AsyncGba:
     """A global BA advanced one LM iteration per `step` (one per tracked
-    frame) on the device stream, applied when finished."""
+    frame) on the device stream, applied when finished. `obs_dropped`: the
+    live observations its problem left out (a device scalar)."""
 
     def __init__(self, cfg: SlamConfig, state: ms.MapState, n_kf_start: int, n_iters: int):
         self.cfg = cfg
         self.prob = extract_global_ba(cfg, state)
+        self.obs_dropped = global_ba_obs_dropped(state)
         self.n_kf_start = n_kf_start
         self.mp_valid_start = state.mp_valid.clone()
         self.mp_first_start = state.mp_first_kf.clone()
@@ -482,44 +498,48 @@ class LoopCloser:
         self.draws = draws if draws is not None else KeyChain(11, device)
         self.loops_closed = 0
         self.gbas_completed = 0
+        self.gba_obs_dropped = 0  # live observations the completed GBAs left out (a device scalar once one has)
         self.closures = []  # (kf_id, candidate, S_cur_cand on the device) of each closed loop
 
     def tick(self, state: ms.MapState):
         """Advance a pending asynchronous GBA by one LM iteration; apply it
         when finished. Returns (state, applied)."""
-        gba = self.pending_gba
-        if gba is None:
-            return state, False
-        if not gba.finished:
-            gba.step()
-            return state, False
-        state = gba.apply(state)
-        self.pending_gba = None
-        self.gbas_completed += 1
-        return state, True
+        with span("loop.tick"):
+            gba = self.pending_gba
+            if gba is None:
+                return state, False
+            if not gba.finished:
+                gba.step()
+                return state, False
+            state = gba.apply(state)
+            self.pending_gba = None
+            self.gbas_completed += 1
+            self.gba_obs_dropped = self.gba_obs_dropped + gba.obs_dropped
+            return state, True
 
     def process(self, state: ms.MapState, db: kdb.KfDatabase, kf_id: int, n_docs: int = None):
         """Dispatch detection for kf_id and resolve the detection of the
         keyframe detect_depth keyframes back. Returns (state, closed)."""
-        cfg = self.cfg
-        if kf_id - self.last_loop_kf < cfg.loop.min_kfs_since_last_loop:
-            return state, False
-        if n_docs is None:
-            n_docs = int(db.n_docs)
-        if n_docs < cfg.loop.min_kfs_since_last_loop:
-            return state, False
-        ids_dev, _, _ = kdb.detect_loop_candidates(db, state, kf_id)
-        if self._group_masks is None:
-            self._group_masks = torch.zeros((ids_dev.shape[0], state.kf_valid.shape[0]), dtype=torch.bool,
-                                            device=ids_dev.device)
-            self._group_counts = torch.zeros(ids_dev.shape[0], dtype=torch.int64, device=ids_dev.device)
-        masks, counts, packed = consistency_check(state, ids_dev, self._group_masks, self._group_counts,
-                                                  cfg.loop.covisibility_consistency_th)
-        self._group_masks, self._group_counts = masks, counts
-        self._pending_detect.append((kf_id,) + _start_readback(packed))
-        if len(self._pending_detect) <= self.detect_depth:
-            return state, False
-        return self._resolve_one_pending(state)
+        with span("loop.process"):
+            cfg = self.cfg
+            if kf_id - self.last_loop_kf < cfg.loop.min_kfs_since_last_loop:
+                return state, False
+            if n_docs is None:
+                n_docs = int(db.n_docs)
+            if n_docs < cfg.loop.min_kfs_since_last_loop:
+                return state, False
+            ids_dev, _, _ = kdb.detect_loop_candidates(db, state, kf_id)
+            if self._group_masks is None:
+                self._group_masks = torch.zeros((ids_dev.shape[0], state.kf_valid.shape[0]), dtype=torch.bool,
+                                                device=ids_dev.device)
+                self._group_counts = torch.zeros(ids_dev.shape[0], dtype=torch.int64, device=ids_dev.device)
+            masks, counts, packed = consistency_check(state, ids_dev, self._group_masks, self._group_counts,
+                                                      cfg.loop.covisibility_consistency_th)
+            self._group_masks, self._group_counts = masks, counts
+            self._pending_detect.append((kf_id,) + _start_readback(packed))
+            if len(self._pending_detect) <= self.detect_depth:
+                return state, False
+            return self._resolve_one_pending(state)
 
     def drain(self, state: ms.MapState):
         """Resolve every pending detection (sequence end). Returns (state,

@@ -54,6 +54,7 @@ from my_orb_slam2_tpu_torch.ops import lie
 from my_orb_slam2_tpu_torch.ops.bow import TreeVocabulary
 from my_orb_slam2_tpu_torch.utils import bridge
 from my_orb_slam2_tpu_torch.utils.config import SlamConfig
+from my_orb_slam2_tpu_torch.utils.profiling import span
 from my_orb_slam2_tpu_torch.utils.steps import step
 from my_orb_slam2_tpu_torch.utils.vocab_io import FALLBACK_ASSET, default_vocabulary, load_packed
 
@@ -150,30 +151,31 @@ class SlamSystem:
         return self._track(frame, timestamp)
 
     def _track(self, frame: FrameData, timestamp: float) -> dict:
-        t0 = time.perf_counter()
-        tr = self.tracker
-        if tr.state == TrackingState.OK and tr.only_tracking and tr.mb_vo:
-            # Localization-mode VO (the map is out of sight): relocalize
-            # alongside VO tracking and let a successful relocalization win.
-            if self._relocalize(frame):
-                tr.mb_vo = False
-        if tr.state == TrackingState.LOST:
-            self._relocalize(frame)
-        info = tr.track(frame, timestamp)
-        if self.enable_loop_closing:
-            # One LM iteration of a pending global BA per frame; fold it in
-            # when it completes.
-            tr.map, applied = self.loop_closer.tick(tr.map)
-            if applied:
-                self.map_change_idx += 1
-                info["gba_applied"] = True
-        if tr.needs_reset:
-            # Lost within the first keyframes: restart from scratch.
-            self.reset()
-            info["reset"] = True
-        info["track_ms"] = (time.perf_counter() - t0) * 1000.0
-        self.timing.append(info["track_ms"])
-        return info
+        with span("system.track"):
+            t0 = time.perf_counter()
+            tr = self.tracker
+            if tr.state == TrackingState.OK and tr.only_tracking and tr.mb_vo:
+                # Localization-mode VO (the map is out of sight): relocalize
+                # alongside VO tracking and let a successful relocalization win.
+                if self._relocalize(frame):
+                    tr.mb_vo = False
+            if tr.state == TrackingState.LOST:
+                self._relocalize(frame)
+            info = tr.track(frame, timestamp)
+            if self.enable_loop_closing:
+                # One LM iteration of a pending global BA per frame; fold it in
+                # when it completes.
+                tr.map, applied = self.loop_closer.tick(tr.map)
+                if applied:
+                    self.map_change_idx += 1
+                    info["gba_applied"] = True
+            if tr.needs_reset:
+                # Lost within the first keyframes: restart from scratch.
+                self.reset()
+                info["reset"] = True
+            info["track_ms"] = (time.perf_counter() - t0) * 1000.0
+            self.timing.append(info["track_ms"])
+            return info
 
     def _relocalize(self, frame: FrameData) -> bool:
         """Relocalize against the keyframe database; on success the tracker

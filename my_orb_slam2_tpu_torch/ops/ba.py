@@ -27,6 +27,7 @@ import torch
 
 from my_orb_slam2_tpu_torch.ops import lie
 from my_orb_slam2_tpu_torch.ops.segment_sum import segment_sum, segments
+from my_orb_slam2_tpu_torch.utils.profiling import span
 from my_orb_slam2_tpu_torch.utils.steps import step
 
 CHI2_MONO = 5.991
@@ -312,7 +313,10 @@ def local_ba_dense(prob: DenseBAProblem, fx, fy, cx, cy, bf, iters1: int = 5, it
 # when C * 6 <= 512 and P * C <= 2**21 (an LU solve of the (6C, 6C) system
 # built from a (P, C, 6, 3) block table, as the reference), else by
 # matrix-free block-Jacobi PCG. Points follow by back-substitution; a step
-# is kept when the robust cost drops.
+# is kept when the robust cost drops. A call is a `ba.bundle_adjust` span
+# (`utils/profiling.span`) holding `ba.prepare` (the layouts and the
+# starting cost) and, each iteration, `ba.linearize`, `ba.solve` and
+# `ba.update`.
 
 
 class BAProblem(NamedTuple):
@@ -387,100 +391,106 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, bf, n_iters: int = 10, cg_ite
     """n_iters LM steps on the flat problem; returns the updated problem
     (and the final damping with return_lam, so an asynchronous caller can
     run the schedule one step at a time)."""
-    C = prob.cam_Tcw.shape[0]
-    P = prob.pt_pos.shape[0]
-    dev, f32 = prob.pt_pos.device, prob.pt_pos.dtype
-    is_stereo = prob.obs_ur >= 0
-    delta = torch.sqrt(torch.where(is_stereo, CHI2_STEREO, CHI2_MONO))
-    free_cam = (~prob.cam_fixed).to(f32)[:, None]
-    free_pt = prob.pt_valid.to(f32)[:, None]
-    maskf = prob.obs_mask.to(f32)
-    dense = C * 6 <= 512 and P * C <= (1 << 21)
-    # Masked observations carry a zero weight: every sum skips them.
-    cam_seg, pt_seg = segments(C, prob.obs_cam, prob.obs_mask), segments(P, prob.obs_pt, prob.obs_mask)
-    blk_seg = segments(P * C, prob.obs_pt * C + prob.obs_cam, prob.obs_mask) if dense else None
+    with span("ba.bundle_adjust"):
+        with span("ba.prepare"):
+            C = prob.cam_Tcw.shape[0]
+            P = prob.pt_pos.shape[0]
+            dev, f32 = prob.pt_pos.device, prob.pt_pos.dtype
+            is_stereo = prob.obs_ur >= 0
+            delta = torch.sqrt(torch.where(is_stereo, CHI2_STEREO, CHI2_MONO))
+            free_cam = (~prob.cam_fixed).to(f32)[:, None]
+            free_pt = prob.pt_valid.to(f32)[:, None]
+            maskf = prob.obs_mask.to(f32)
+            dense = C * 6 <= 512 and P * C <= (1 << 21)
+            # Masked observations carry a zero weight: every sum skips them.
+            cam_seg, pt_seg = segments(C, prob.obs_cam, prob.obs_mask), segments(P, prob.obs_pt, prob.obs_mask)
+            blk_seg = segments(P * C, prob.obs_pt * C + prob.obs_cam, prob.obs_mask) if dense else None
 
-    def total_cost(cam_Tcw, pt_pos):
-        r, _, _, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
-        rho = _robust_cost(_chi2(r, prob.obs_inv_sigma2, is_stereo), delta, use_huber)
-        return (rho * maskf * (z > 0)).sum()
+            def total_cost(cam_Tcw, pt_pos):
+                r, _, _, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
+                rho = _robust_cost(_chi2(r, prob.obs_inv_sigma2, is_stereo), delta, use_huber)
+                return (rho * maskf * (z > 0)).sum()
 
-    cam_Tcw, pt_pos = prob.cam_Tcw, prob.pt_pos
-    lam = torch.as_tensor(lam0, dtype=f32, device=dev)
-    cost_cur = total_cost(cam_Tcw, pt_pos)
-    for _ in range(n_iters):
-        r, J_cam, J_pt, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
-        c2 = _chi2(r, prob.obs_inv_sigma2, is_stereo)
-        e = torch.sqrt(torch.clamp(c2, min=1e-12))
-        w_huber = torch.where(e > delta, delta / e, 1.0) if use_huber else torch.ones_like(e)
-        w = prob.obs_inv_sigma2 * w_huber * maskf * (z > 0)
-        row_w = torch.stack([w, w, w * is_stereo], dim=1)
-        Jc_w = J_cam * row_w[:, :, None]
-        Jp_w = J_pt * row_w[:, :, None]
-        U = segment_sum(cam_seg, torch.einsum("oij,oik->ojk", Jc_w, J_cam))
-        V = segment_sum(pt_seg, torch.einsum("oij,oik->ojk", Jp_w, J_pt))
-        Wo = torch.einsum("oij,oik->ojk", Jc_w, J_pt)  # (O, 6, 3)
-        b_c = segment_sum(cam_seg, -torch.einsum("oij,oi->oj", Jc_w, r))
-        b_p = segment_sum(pt_seg, -torch.einsum("oij,oi->oj", Jp_w, r))
-        U_d = U + lam * torch.diag_embed(torch.diagonal(U, dim1=1, dim2=2))
-        V_inv = _inv3x3(V + lam * torch.diag_embed(torch.diagonal(V, dim1=1, dim2=2)))
-        Vb = torch.einsum("pij,pj->pi", V_inv, b_p)
-        b_eff = (b_c - segment_sum(cam_seg, torch.einsum("oij,oj->oi", Wo, Vb[prob.obs_pt]))) * free_cam
+            cam_Tcw, pt_pos = prob.cam_Tcw, prob.pt_pos
+            lam = torch.as_tensor(lam0, dtype=f32, device=dev)
+            cost_cur = total_cost(cam_Tcw, pt_pos)
 
-        if dense:
-            D = C * 6
-            B = segment_sum(blk_seg, Wo).reshape(P, C, 6, 3)
-            S = -torch.einsum("pcik,pdjk->cidj", torch.einsum("pcij,pjk->pcik", B, V_inv), B)
-            S = S + torch.einsum("cij,cd->cidj", U_d, torch.eye(C, dtype=f32, device=dev))
-            S = S.reshape(D, D)
-            # Pin singular rows: fixed cameras and free cameras with no
-            # observation (a dense solve would give NaN there).
-            live = free_cam.expand(C, 6).reshape(D) * (torch.diagonal(S) > 1e-10).to(f32)
-            S = S * (live[:, None] * live[None, :]) + torch.diag(1.0 - live)
-            dx_c = torch.linalg.solve_ex(S, (b_eff.reshape(D) * live)[:, None])[0][:, 0].reshape(C, 6)
-            dx_c = dx_c * free_cam
-            dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
-        else:
-            M_inv = _inv6x6(U_d)
+        for _ in range(n_iters):
+            with span("ba.linearize"):
+                r, J_cam, J_pt, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
+                c2 = _chi2(r, prob.obs_inv_sigma2, is_stereo)
+                e = torch.sqrt(torch.clamp(c2, min=1e-12))
+                w_huber = torch.where(e > delta, delta / e, 1.0) if use_huber else torch.ones_like(e)
+                w = prob.obs_inv_sigma2 * w_huber * maskf * (z > 0)
+                row_w = torch.stack([w, w, w * is_stereo], dim=1)
+                Jc_w = J_cam * row_w[:, :, None]
+                Jp_w = J_pt * row_w[:, :, None]
+                U = segment_sum(cam_seg, torch.einsum("oij,oik->ojk", Jc_w, J_cam))
+                V = segment_sum(pt_seg, torch.einsum("oij,oik->ojk", Jp_w, J_pt))
+                Wo = torch.einsum("oij,oik->ojk", Jc_w, J_pt)  # (O, 6, 3)
+                b_c = segment_sum(cam_seg, -torch.einsum("oij,oi->oj", Jc_w, r))
+                b_p = segment_sum(pt_seg, -torch.einsum("oij,oi->oj", Jp_w, r))
+                U_d = U + lam * torch.diag_embed(torch.diagonal(U, dim1=1, dim2=2))
+                V_inv = _inv3x3(V + lam * torch.diag_embed(torch.diagonal(V, dim1=1, dim2=2)))
+                Vb = torch.einsum("pij,pj->pi", V_inv, b_p)
+                b_eff = (b_c - segment_sum(cam_seg, torch.einsum("oij,oj->oi", Wo, Vb[prob.obs_pt]))) * free_cam
 
-            def S_matvec(x):
-                x = x * free_cam
-                y = segment_sum(pt_seg, torch.einsum("oij,oi->oj", Wo, x[prob.obs_cam]))
-                y = torch.einsum("pij,pj->pi", V_inv, y)
-                t2 = segment_sum(cam_seg, torch.einsum("oij,oj->oi", Wo, y[prob.obs_pt]))
-                return (torch.einsum("cij,cj->ci", U_d, x) - t2) * free_cam
+            with span("ba.solve"):
+                if dense:
+                    D = C * 6
+                    B = segment_sum(blk_seg, Wo).reshape(P, C, 6, 3)
+                    S = -torch.einsum("pcik,pdjk->cidj", torch.einsum("pcij,pjk->pcik", B, V_inv), B)
+                    S = S + torch.einsum("cij,cd->cidj", U_d, torch.eye(C, dtype=f32, device=dev))
+                    S = S.reshape(D, D)
+                    # Pin singular rows: fixed cameras and free cameras with no
+                    # observation (a dense solve would give NaN there).
+                    live = free_cam.expand(C, 6).reshape(D) * (torch.diagonal(S) > 1e-10).to(f32)
+                    S = S * (live[:, None] * live[None, :]) + torch.diag(1.0 - live)
+                    dx_c = torch.linalg.solve_ex(S, (b_eff.reshape(D) * live)[:, None])[0][:, 0].reshape(C, 6)
+                    dx_c = dx_c * free_cam
+                    dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
+                else:
+                    M_inv = _inv6x6(U_d)
 
-            def precond(x):
-                return torch.einsum("cij,cj->ci", M_inv, x) * free_cam
+                    def S_matvec(x):
+                        x = x * free_cam
+                        y = segment_sum(pt_seg, torch.einsum("oij,oi->oj", Wo, x[prob.obs_cam]))
+                        y = torch.einsum("pij,pj->pi", V_inv, y)
+                        t2 = segment_sum(cam_seg, torch.einsum("oij,oj->oi", Wo, y[prob.obs_pt]))
+                        return (torch.einsum("cij,cj->ci", U_d, x) - t2) * free_cam
 
-            dx_c = torch.zeros(C, 6, dtype=f32, device=dev)
-            rr = b_eff
-            pdir = precond(rr)
-            rz = (rr * pdir).sum()
-            for _ in range(cg_iters):
-                Sp = S_matvec(pdir)
-                denom = (pdir * Sp).sum()
-                alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
-                dx_c = dx_c + alpha * pdir
-                rr = rr - alpha * Sp
-                zz = precond(rr)
-                rz_new = (rr * zz).sum()
-                beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
-                pdir = zz + beta * pdir
-                rz = rz_new
+                    def precond(x):
+                        return torch.einsum("cij,cj->ci", M_inv, x) * free_cam
 
-        # Back-substitute the points: dy = V^-1 (b_p - W^T dx).
-        Wt_dx = segment_sum(pt_seg, torch.einsum("oij,oi->oj", Wo, dx_c[prob.obs_cam]))
-        dy = torch.einsum("pij,pj->pi", V_inv, b_p - Wt_dx) * free_pt
-        cam_new = torch.where(prob.cam_fixed[:, None, None], cam_Tcw, lie.se3_exp(dx_c) @ cam_Tcw)
-        pt_new = pt_pos + dy
-        cost_new = total_cost(cam_new, pt_new)
-        improved = cost_new < cost_cur
-        cam_Tcw = torch.where(improved, cam_new, cam_Tcw)
-        pt_pos = torch.where(improved, pt_new, pt_pos)
-        lam = torch.where(improved, lam * 0.5, lam * 4.0)
-        cost_cur = torch.where(improved, cost_new, cost_cur)
-    out = prob._replace(cam_Tcw=cam_Tcw, pt_pos=pt_pos)
+                    dx_c = torch.zeros(C, 6, dtype=f32, device=dev)
+                    rr = b_eff
+                    pdir = precond(rr)
+                    rz = (rr * pdir).sum()
+                    for _ in range(cg_iters):
+                        Sp = S_matvec(pdir)
+                        denom = (pdir * Sp).sum()
+                        alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
+                        dx_c = dx_c + alpha * pdir
+                        rr = rr - alpha * Sp
+                        zz = precond(rr)
+                        rz_new = (rr * zz).sum()
+                        beta = torch.where(torch.abs(rz) > 1e-12, rz_new / rz, 0.0)
+                        pdir = zz + beta * pdir
+                        rz = rz_new
+
+            with span("ba.update"):
+                # Back-substitute the points: dy = V^-1 (b_p - W^T dx).
+                Wt_dx = segment_sum(pt_seg, torch.einsum("oij,oi->oj", Wo, dx_c[prob.obs_cam]))
+                dy = torch.einsum("pij,pj->pi", V_inv, b_p - Wt_dx) * free_pt
+                cam_new = torch.where(prob.cam_fixed[:, None, None], cam_Tcw, lie.se3_exp(dx_c) @ cam_Tcw)
+                pt_new = pt_pos + dy
+                cost_new = total_cost(cam_new, pt_new)
+                improved = cost_new < cost_cur
+                cam_Tcw = torch.where(improved, cam_new, cam_Tcw)
+                pt_pos = torch.where(improved, pt_new, pt_pos)
+                lam = torch.where(improved, lam * 0.5, lam * 4.0)
+                cost_cur = torch.where(improved, cost_new, cost_cur)
+        out = prob._replace(cam_Tcw=cam_Tcw, pt_pos=pt_pos)
     return (out, lam) if return_lam else out
 
 

@@ -1,14 +1,20 @@
-"""Profiling and metrics hooks (counterpart of
-my_orb_slam2_tpu/utils/profiling.py).
+"""Spans and profiler traces of the port.
 
-- `StageTimer`: named per-stage wall timing with summaries (the structured
-  version of the reference mains' median / mean print); a copy.
+- `span(name)`: the one span primitive. Every call counts itself, keeps
+  its host duration in a ring of the last `RING` calls of that name (and
+  the first call's duration), and, on a CUDA device whose current stream
+  is not capturing a graph, records a pair of timing events from a ring
+  preallocated per name: the device timeline's length of the span, read
+  only by `boundary`. While a torch profiler records, the span is also a
+  `record_function` range, so it shows in the trace on the profiler's
+  clock, nested by call stack. Nothing switches it: tracing is on exactly
+  while a profiler records. `boundary(name)` reads a name's numbers and
+  `reset()` clears them all. `utils/steps.step` opens a span around every
+  marked step.
 - `device_trace`: a context manager around torch.profiler (CPU activity,
   and CUDA activity where a card is present) that writes a Chrome trace
   into `log_dir`: the counterpart of the reference's jax.profiler trace;
   `top_device_kernels` reads a trace's costliest CUDA kernels.
-- `MetricsLog`: append-only JSONL metrics (tracked points, inliers, map
-  size per frame) for offline analysis; a copy.
 """
 
 from __future__ import annotations
@@ -17,36 +23,104 @@ import contextlib
 import json
 import os
 import time
-from collections import defaultdict
-from typing import Optional
+from collections import defaultdict, deque
 
-import numpy as np
+import torch
+
+RING = 64  # calls a span name keeps: host durations and device event pairs
+
+# ~0.1 us a call; entering record_function costs ~10 us even with no
+# profiler recording, so a span enters it only while one records.
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Boundary:
+    """What the spans of one name recorded."""
+
+    __slots__ = ("name", "calls", "first_ns", "host_ns", "events", "closed", "next")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.calls = 0
+        self.first_ns = None
+        self.host_ns = deque(maxlen=RING)
+        self.events = None  # RING (start, end) pairs, made at the name's first call on a CUDA device
+        self.closed = [False] * RING  # slot i holds a finished pair
+        self.next = 0  # the slot the next call takes
+
+
+_bounds: dict = {}
+
+
+class span:
+    """`with span(name):` times the block (see the module note)."""
+
+    __slots__ = ("b", "slot", "t0", "rf")
+
+    def __init__(self, name: str):
+        b = _bounds.get(name)
+        if b is None:
+            b = _bounds[name] = _Boundary(name)
+        self.b = b
+
+    def __enter__(self):
+        b = self.b
+        self.rf = None
+        if _profiling():
+            self.rf = torch.autograd.profiler.record_function(b.name)
+            self.rf.__enter__()
+        self.slot = None
+        if torch.cuda.is_initialized() and not torch.cuda.is_current_stream_capturing():
+            if b.events is None:
+                b.events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                            for _ in range(RING)]
+            self.slot = b.next
+            b.next = (b.next + 1) % RING
+            b.closed[self.slot] = False
+            b.events[self.slot][0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter_ns() - self.t0
+        b = self.b
+        if self.slot is not None:
+            b.events[self.slot][1].record()
+            b.closed[self.slot] = True
+        b.calls += 1
+        if b.first_ns is None:
+            b.first_ns = dt
+        b.host_ns.append(dt)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def boundary(name: str) -> dict:
+    """The numbers of the spans named `name`: `calls`, `first_host_ms` (None
+    before a call), `host_ms` (the last `RING` calls, oldest first) and
+    `device_ms` (the event pairs among them that the device has passed,
+    oldest first; empty without a CUDA device)."""
+    b = _bounds.get(name)
+    if b is None:
+        return {"calls": 0, "first_host_ms": None, "host_ms": [], "device_ms": []}
+    device_ms = []
+    if b.events is not None:
+        for k in range(RING):
+            i = (b.next + k) % RING
+            start, end = b.events[i]
+            if b.closed[i] and end.query():
+                device_ms.append(start.elapsed_time(end))
+    return {"calls": b.calls, "first_host_ms": None if b.first_ns is None else b.first_ns * 1e-6,
+            "host_ms": [t * 1e-6 for t in b.host_ns], "device_ms": device_ms}
+
+
+def reset():
+    """Forget every span's numbers."""
+    _bounds.clear()
+
 
 TRACE_FILE = "trace.json"
-
-
-class StageTimer:
-    def __init__(self):
-        self.samples = defaultdict(list)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append(time.perf_counter() - t0)
-
-    def summary(self, skip_warmup: int = 3) -> dict:
-        out = {}
-        for name, xs in self.samples.items():
-            arr = np.asarray(xs[skip_warmup:] if len(xs) > skip_warmup * 2 else xs)
-            out[name] = {
-                "median_ms": float(np.median(arr) * 1000),
-                "mean_ms": float(np.mean(arr) * 1000),
-                "count": len(xs),
-            }
-        return out
 
 
 class DeviceTrace:
@@ -56,7 +130,6 @@ class DeviceTrace:
     the (slow) export of a long trace for later."""
 
     def __init__(self, log_dir: str):
-        import torch
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -101,18 +174,3 @@ def top_device_kernels(trace_path: str, n: int = 3) -> list:
             totals[e["name"]][0] += float(e.get("dur", 0.0))
             totals[e["name"]][1] += 1
     return sorted(((k, us, c) for k, (us, c) in totals.items()), key=lambda r: -r[1])[:n]
-
-
-class MetricsLog:
-    def __init__(self, path: Optional[str] = None):
-        self.path = path
-        self._f = open(path, "a") if path else None
-
-    def log(self, **kv):
-        if self._f is not None:
-            self._f.write(json.dumps(kv) + "\n")
-
-    def close(self):
-        if self._f:
-            self._f.close()
-            self._f = None

@@ -5,12 +5,15 @@ step goes to the observer that `observing` has set, with the step's name
 (its qualified name), the function and its arguments, and straight to the
 function when no observer is set: one check a call. `card_parity.Witness`
 is the observer that runs a step on the card and on the CPU side by side.
+Either way the call runs inside `utils.profiling.span` of the step's name.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+
+from my_orb_slam2_tpu_torch.utils.profiling import span
 
 _observer = None
 
@@ -21,9 +24,10 @@ def step(fn):
 
     @functools.wraps(fn)
     def call(*a, **k):
-        if _observer is None:
-            return fn(*a, **k)
-        return _observer(name, fn, a, k)
+        with span(name):
+            if _observer is None:
+                return fn(*a, **k)
+            return _observer(name, fn, a, k)
 
     return call
 

@@ -422,6 +422,20 @@ def test_global_ba(loop_map, corrected):
     assert _kf_ate(np.asarray(sj.kf_Tcw), gt) < 0.35 * _kf_ate(loop_map["state"]["kf_Tcw"], gt)
 
 
+def test_global_ba_counts_dropped_observations(corrected):
+    _, got = corrected
+    m = bridge.map_state_to_numpy(got)
+    kf_mp = m["kf_mp"]
+    live = (kf_mp >= 0) & m["kf_kp_valid"] & m["kf_valid"][:, None]
+    live &= m["mp_valid"][np.clip(kf_mp, 0, None)]
+    n_live = int(live.sum())
+    assert 0 < n_live < 8192
+    for max_obs, dropped in ((n_live - 37, 37), (n_live, 0), (8192, 0)):
+        assert int(tlc.global_ba_obs_dropped(got, max_obs)) == dropped
+        assert int(tlc.extract_global_ba(CT, got, max_obs=max_obs).obs_mask.sum()) == n_live - dropped
+    assert int(tlc.AsyncGba(CT, got, n_kf_start=M, n_iters=1).obs_dropped) == 0
+
+
 def test_async_gba_with_midflight_keyframe(loop_map, corrected):
     ref, got = corrected
     gj = jlc.AsyncGba(CJ, _jstate(ref), n_kf_start=M, n_iters=12)
@@ -482,7 +496,7 @@ def test_loop_closer_process(loop_map):
         st, at = tl.tick(st)
         applied.append((aj, at))
     assert applied[-1] == (True, True) and not any(a or b for a, b in applied[:-1])
-    assert jl.gbas_completed == tl.gbas_completed == 1
+    assert jl.gbas_completed == tl.gbas_completed == 1 and int(tl.gba_obs_dropped) == 0
     assert_maps_close(st, sj, CLOSER_POSE_TOL, CLOSER_PT_TOL, "after the asynchronous GBA")
 
 

@@ -191,7 +191,7 @@ def test_loop_drive_runs_at_the_cut():
                    "shed_work", "kf_capacity_refusals", "loop_enabled")
     assert all(k in res for k in tool_fields)
     assert res["frames"] == N_FRAMES and res["lost"] == 0 and res["lost_frames"] == [] and res["loop_enabled"]
-    assert res["pipeline_depth"] == 5
+    assert res["pipeline_depth"] == 5 and res["gba_obs_dropped"] == 0
     assert 0 < res["ate_m"] < 0.5 and res["seam_error_m"] is None and res["kfs_inserted"] >= 3
     assert res["ate_m_tool"] == res["ate_m"] and res["seam_error_m_tool"] is None  # no row lost: one pairing
     # No loop in the first frames of the lap: the tool's gate fires.

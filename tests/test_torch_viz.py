@@ -9,8 +9,7 @@ JAX reference vs PyTorch port, on the CPU.
 - `LiveViewer` on the port's SlamSystem on the CPU: the control file turns
   localization mode on and off and resets the system; both PNGs are
   written to a temporary name and renamed into place.
-- `StageTimer.summary` equals the reference's on the same samples, and
-  `device_trace` writes a Chrome trace with CPU events.
+- `device_trace` writes a Chrome trace with CPU events.
 """
 
 import json
@@ -21,7 +20,6 @@ import pytest
 import torch
 
 from my_orb_slam2_tpu.utils import ar as jar
-from my_orb_slam2_tpu.utils import profiling as jprof
 from my_orb_slam2_tpu.utils import viz as jviz
 from my_orb_slam2_tpu_torch.utils import ar as tar
 from my_orb_slam2_tpu_torch.utils import native_io, profiling as tprof
@@ -153,18 +151,7 @@ def test_live_viewer_controls_the_system(tmp_path, monkeypatch):
         assert native_io.decode_image(str(tmp_path / "live_map.png")).shape[:2] == (900, 900)
 
 
-def test_stage_timer_and_device_trace(tmp_path):
-    samples = {"extract": [0.011, 0.009, 0.010, 0.030, 0.012, 0.008, 0.009], "track": [0.02, 0.03]}
-    t, j = tprof.StageTimer(), jprof.StageTimer()
-    for timer in (t, j):
-        for k, xs in samples.items():
-            timer.samples[k].extend(xs)
-        with timer.stage("live"):
-            pass
-    got, want = t.summary(), j.summary()
-    assert got.keys() == want.keys()
-    for k in samples:
-        assert got[k] == want[k]
+def test_device_trace(tmp_path):
     with tprof.device_trace(str(tmp_path / "trace")) as trace:
         torch.ones(64, 64) @ torch.ones(64, 64)
         trace.stop()  # recording ends here; the trace is written on exit
@@ -173,8 +160,3 @@ def test_stage_timer_and_device_trace(tmp_path):
     names = [e.get("name", "") for e in json.loads(open(trace.path).read())["traceEvents"]]
     assert any("matmul" in n for n in names) and not any("aten::sum" in n for n in names)
     assert tprof.top_device_kernels(trace.path) == []  # no CUDA kernels on the CPU
-    log = tmp_path / "m.jsonl"
-    ml = tprof.MetricsLog(str(log))
-    ml.log(frame=1, inliers=42)
-    ml.close()
-    assert json.loads(log.read_text()) == {"frame": 1, "inliers": 42}
