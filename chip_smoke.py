@@ -193,7 +193,13 @@ Phases (any failure raises, so the exit code is non-zero):
    difference (printed), the route its shape takes, timed with its bytes
    bound (of its live rows) and its chain floor, and the other route on the same input
    (torch.equal, timed); ba.bundle_adjust and
-   pose_graph.optimize_pose_graph twice on those inputs, torch.equal.
+   pose_graph.optimize_pose_graph twice on those inputs, torch.equal; the
+   fused PCG matvec (`pcg_matvec_phase`) on that GBA tick and on the
+   benchmark's kitti00.gba problem: against its plain version on the card
+   and on the CPU within 64 u of the terms, twice torch.equal, 2 launches a
+   call and 128 an LM iteration, timed by graph replay and by the profiler
+   per kernel beside its bytes bound, the plain version and the wrapper's
+   host time.
 
 Phases 17-19, 15-16, then 10 run one after another in a child process
 (`chip_smoke.py --child 17,18,19,15,16,10`) started after phase 4, beside
@@ -215,7 +221,8 @@ phase 15 once a rank (counted in the ranks), phase 16 once a world and
 phases 17-19 once an image frame. The segment-sum kernel's launches are
 counted the same way in phases 8, 9, 11 and 15-19, by route too, and
 gated above 0 in phases 9 and 17 (each applies a global BA), 11 and 18 (a
-monocular initialization's global BA) and 15 (the sharded solves).
+monocular initialization's global BA) and 15 (the sharded solves); the
+fused PCG matvec's (`ops/pcg_matvec.py`) in phase 9, gated above 0.
 Phases 5 and 5b print their fps with its spread (the fps of each quarter
 of the timed frames). Phases 8 and 9 time the relocalization, the loop
 closure (detection resolve -> Sim3 -> correction) and each GBA tick
@@ -226,7 +233,9 @@ the kernel's times on each main-path input: the stereo batch, the single
 atlas, the mono atlas, KITTI's and EuRoC's batches, a front-end rank's
 (4, 2288, 656) batch, make_vocab's (12, 2288, 656) one, the rendered
 circuits' L+R batch and mono atlas and the 240x320 atlas; segment_sum:
-launches by phase, times on phase 20's cases); the last line is
+launches by phase, times on phase 20's cases; pcg_matvec: phase 9's
+launches, times on phase 9's first GBA tick and on the benchmark's
+kitti00.gba problem); the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -1737,6 +1746,127 @@ def parity_kernels(captured, dev, smi) -> dict:
     return timed
 
 
+def pcg_matvec_cases(captured, dev) -> dict:
+    """The fused PCG matvec's S and first PCG direction on phase 9's first
+    GBA tick (its captured problem) and on the benchmark's `kitti00.gba`
+    problem (`slam_bench.gba_problem` from the cell's configuration and
+    traffic, seed 0), each taken from the first PCG step of a real
+    `ba.bundle_adjust` call: name -> (S, x, the problem, its intrinsics)."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.ops import ba
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+    from slam_bench import gba_problem
+
+    root = Path(__file__).resolve().parent / "slam_bench"
+    config = json.loads((root / "configs" / "kitti00-stereo.json").read_text())
+    traffic = json.loads((root / "workloads" / "global_ba.json").read_text())
+    cell = gba_problem.build(config, traffic, 0, dev)
+    c = config["camera"]
+    gcfg, gprob = captured["gba"]
+    g = gcfg.camera
+    problems = {
+        f"phase 9's first GBA tick: {gprob.cam_Tcw.shape[0]} cameras, {gprob.pt_pos.shape[0]} points, "
+        f"{gprob.obs_cam.shape[0]} rows": (gprob, (g.fx, g.fy, g.cx, g.cy, g.bf)),
+        f"kitti00.gba's problem (seed 0): {cell['cam_Tcw'].shape[0]} cameras, {cell['pt_pos'].shape[0]} points, "
+        f"{cell['obs_cam'].shape[0]} rows": (ba.BAProblem(**{f: cell[f] for f in gba_problem.FIELDS}),
+                                             (c["fx"], c["fy"], c["cx"], c["cy"], c["bf"])),
+    }
+    cases = {}
+    for name, (prob, cam) in problems.items():
+        kept, step = {}, pm.schur_matvec
+
+        def first_step(S, x):
+            kept.setdefault("S", (S, x.clone()))
+            return step(S, x)
+
+        first_step.launches = 0  # the wrapper counts into the name it is called by; these are not the main path's
+        pm.schur_matvec = first_step
+        try:
+            ba.bundle_adjust(prob, *cam, n_iters=1, cg_iters=1)
+        finally:
+            pm.schur_matvec = step
+        cases[name] = (*kept["S"], prob, cam)
+    return cases
+
+
+def pcg_matvec_phase(captured, dev, smi) -> dict:
+    """Phase 20, the fused PCG matvec (`ops/pcg_matvec.py`) on
+    `pcg_matvec_cases`: the kernel pair against its plain version on the
+    card and on the CPU within 64 u of the terms' magnitude (u = 2^-24:
+    each row's product rounds differently, the sums take the rows in the
+    same order), twice torch.equal, 2 launches a call and 128 in an LM
+    iteration of 64 PCG steps; device time by graph replay and by the
+    profiler per kernel beside its bound by bytes (`pcg_matvec.work`) and
+    the plain version's; the wrapper's host time; the permutation of W
+    (once an LM iteration). Returns the timings by case."""
+    import torch
+
+    from my_orb_slam2_tpu_torch.ops import ba
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+    from my_orb_slam2_tpu_torch.ops import segment_sum as ss
+    from my_orb_slam2_tpu_torch.utils import kernel_timing as kt
+
+    out = {}
+    for name, (S, x, prob, cam) in pcg_matvec_cases(captured, dev).items():
+        n0 = pm.schur_matvec.launches
+        a = pm.schur_matvec(S, x)
+        launched = pm.schur_matvec.launches - n0
+        b, plain = pm.schur_matvec(S, x), pm.plain(S, x)
+        torch.cuda.synchronize()
+        cpu_plan = pm.plan(ss.segments(S.plan.cam_seg.n, prob.obs_cam.cpu()),
+                           ss.segments(S.plan.pt_seg.n, prob.obs_pt.cpu()))
+        cpu = pm.plain(pm.schur(cpu_plan, S.Wo.cpu(), S.V_inv.cpu(), S.U_d.cpu(), S.free_cam.cpu()), x.cpu())
+        # the terms' magnitude: S x with every operand's absolute value and the subtraction an add
+        x_a = x.abs() * S.free_cam
+        y_a = torch.einsum("pij,pj->pi", S.V_inv.abs(), ss.plain(S.plan.pt_seg, torch.einsum(
+            "oij,oi->oj", S.Wo.abs(), x_a[S.plan.cam_seg.idx])))
+        t_a = ss.plain(S.plan.cam_seg, torch.einsum("oij,oj->oi", S.Wo.abs(), y_a[S.plan.pt_seg.idx]))
+        tol = 64 * 2.0 ** -24 * (torch.einsum("cij,cj->ci", S.U_d.abs(), x_a) + t_a) * S.free_cam
+        within = bool(((a - plain).abs() <= tol).all()) and bool(((a.cpu() - cpu).abs() <= tol.cpu()).all())
+        repeat = torch.equal(a, b)
+        before = pm.schur_matvec.launches
+        ba.bundle_adjust(prob, *cam, n_iters=1, cg_iters=64)
+        torch.cuda.synchronize()
+        per_iteration = pm.schur_matvec.launches - before
+        seg = S.plan.pt_seg
+        rows = int(S.plan.cam_seg.offsets[-1])
+        live_pts = int((seg.offsets[1:] > seg.offsets[:-1]).sum())
+        w = pm.work(rows, prob.obs_cam.shape[0], S.plan.cam_seg.n, seg.n, live_pts, 64)
+        bound, bound_by = kt.bound_ms(w["bytes"], w["ops"])
+        t = {"graph_ms": _graph_ms_or_none(lambda: pm.schur_matvec(S, x)),
+             "point_ms": kt.profiled_kernel_ms(lambda: pm.schur_matvec(S, x), "pcg_point_matvec")[0],
+             "camera_ms": kt.profiled_kernel_ms(lambda: pm.schur_matvec(S, x), "pcg_camera_matvec")[0],
+             "events_ms": kt.events_ms(lambda: pm.schur_matvec(S, x)),
+             "host_ms": kt.host_ms(lambda: pm.schur_matvec(S, x)),
+             "plain_graph_ms": _graph_ms_or_none(lambda: pm.plain(S, x)),
+             "plain_ms": kt.events_ms(lambda: pm.plain(S, x)),
+             "pack_ms": kt.events_ms(lambda: pm.schur(S.plan, S.Wo, S.V_inv, S.U_d, S.free_cam)),
+             "bound_ms": bound, "bound_by": bound_by, "bytes": w["bytes"], "live_rows": rows,
+             "live_points": live_pts, "routes": {"points": "long" if S.plan.points.long else "short",
+                                                 "cameras": "long" if S.plan.cameras.long else "short"},
+             "max_abs_err": float((a.cpu() - cpu).abs().max()),
+             "max_abs_err_vs_card_plain": float((a - plain).abs().max()), "launches_per_lm_iteration": per_iteration}
+        pm.schur_matvec.launches = n0  # comparison launches are not the main path's
+        device = t["graph_ms"]
+        t["share_of_bound"] = None if not device else bound / device
+        out[name] = t
+        print(f"pcg_matvec [{name}]: routes {t['routes']}, {launched} launches a call, "
+              f"{per_iteration} in an LM iteration of 64 PCG steps, torch.equal over two calls {repeat}, within 64 u "
+              f"of the terms of the plain version on the card and on the CPU {within} (max |kernel - CPU plain| "
+              f"{t['max_abs_err']:.3e}, - card plain {t['max_abs_err_vs_card_plain']:.3e}); device "
+              f"{device} ms a call by graph replay (profiler: point pass {t['point_ms']} ms, camera pass "
+              f"{t['camera_ms']} ms), bound {bound:.5f} ms by {bound_by} ({w['bytes'] / 1e6:.2f} MB: {rows} live "
+              f"rows, {live_pts} live points), share {t['share_of_bound']}; the plain version "
+              f"{t['plain_graph_ms']} ms by graph replay, {t['plain_ms']:.5f} ms by events; the wrapper's host "
+              f"time {t['host_ms']:.5f} ms, events {t['events_ms']:.5f} ms a call; W's permutation (once an LM "
+              f"iteration) {t['pack_ms']:.5f} ms [{smi}]")
+        if launched != 2 or per_iteration != 128 or not (repeat and within):
+            raise SystemExit(f"pcg_matvec [{name}]: launches {launched} a call, {per_iteration} an LM iteration, "
+                             f"repeat {repeat}, within {within}")
+    return out
+
+
 def rgbd_child(dev, smi) -> dict:
     """Phase 10 in the child process: `rgbd_phase`'s FAST launches."""
     return {"launches": rgbd_phase(dev, smi)}
@@ -1817,6 +1947,7 @@ def main() -> int:
     from my_orb_slam2_tpu_torch import time_fast_nms as tf
     from my_orb_slam2_tpu_torch.models.frame import FrameFactory
     from my_orb_slam2_tpu_torch.ops import fast_nms as fk
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
     from my_orb_slam2_tpu_torch.ops import segment_sum as ss
     from my_orb_slam2_tpu_torch.utils.synthetic import bench_config, stereo_drive
 
@@ -1961,6 +2092,7 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
     t0 = time.perf_counter()
     fk.fast_nms.launches = 0
     ss.segment_sum.launches = ss.segment_sum.long_launches = 0
+    pm.schur_matvec.launches = 0
     captured = {}
     undo = _capture_solver_inputs(captured)
     try:
@@ -1969,7 +2101,11 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
         undo()
     loop_launches = fk.fast_nms.launches
     seg_launches["9"], seg_long["9"] = ss.segment_sum.launches, ss.segment_sum.long_launches
-    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; segment_sum launches {seg_launches['9']}")
+    mv_launches = pm.schur_matvec.launches
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s; segment_sum launches {seg_launches['9']}, pcg_matvec "
+          f"launches {mv_launches}")
+    if mv_launches == 0:
+        raise SystemExit("phase 9's global BA took the PCG branch and launched no pcg_matvec kernel")
 
     # 10. RGB-D drive: in the child
 
@@ -2004,6 +2140,7 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
     # 20 (second part), on the idle card: draws, the segment-sum kernel, the solvers twice
     t0 = time.perf_counter()
     seg_t = parity_kernels(captured, dev, smi)
+    mv_t = pcg_matvec_phase(captured, dev, smi)
     del captured
     print(f"phase 20 (kernels) took {time.perf_counter() - t0:.1f} s")
     ring_t = ring_kernel_checks(dev, smi)
@@ -2068,6 +2205,28 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
         "library_ms": seg_main["library_ms"],
         "cases": seg_t,
     }
+    mv_main = mv_t[next(k for k in mv_t if k.startswith("kitti00.gba"))]
+    mv_entry = {
+        "name": "pcg_matvec",
+        "route": "cuda",
+        "source": "my_orb_slam2_tpu_torch/csrc/pcg_matvec.cu",
+        "replaces": "none: no TPU kernel (the reference's PCG matvec is XLA einsums and scatters, "
+                    "my_orb_slam2_tpu/ops/ba.py bundle_adjust)",
+        "launches": mv_launches,
+        "launches_by_phase": {"9": mv_launches},
+        "max_abs_err": max(t["max_abs_err"] for t in mv_t.values()),
+        "shape": "kitti00.gba's problem",
+        "ms": mv_main["graph_ms"],
+        "device_ms": mv_main["graph_ms"],
+        "device_ms_from": "graph replay",
+        "host_ms": mv_main["host_ms"],
+        "events_ms": mv_main["events_ms"],
+        "plain_ms": mv_main["plain_ms"],
+        "bound_ms": mv_main["bound_ms"],
+        "bound_by": mv_main["bound_by"],
+        "library_ms": None,
+        "cases": mv_t,
+    }
     print(json.dumps({"kernels": [{
         "name": "fast_nms",
         "route": "cuda",
@@ -2093,7 +2252,7 @@ def _main_phases(cfg, factory, ex, pairs, poses, dev, smi, kind, max_err, timed,
         "vocab_batch": {k: vocab_t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")},
         **{name: {k: t[k] for k in ("device_ms", "host_ms", "events_ms", "plain_ms", "bound_ms")}
            for name, t in ring_t.items()},
-    }, seg_entry]}))
+    }, seg_entry, mv_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from my_orb_slam2_tpu_torch.ops import lie
+from my_orb_slam2_tpu_torch.ops import lie, pcg_matvec
 from my_orb_slam2_tpu_torch.ops.segment_sum import segment_sum, segments
 from my_orb_slam2_tpu_torch.utils.profiling import span
 from my_orb_slam2_tpu_torch.utils.steps import step
@@ -312,7 +312,8 @@ def local_ba_dense(prob: DenseBAProblem, fx, fy, cx, cy, bf, iters1: int = 5, it
 # Schur-reduces the points and solves the camera system: densely
 # when C * 6 <= 512 and P * C <= 2**21 (an LU solve of the (6C, 6C) system
 # built from a (P, C, 6, 3) block table, as the reference), else by
-# matrix-free block-Jacobi PCG. Points follow by back-substitution; a step
+# matrix-free block-Jacobi PCG, each step's S x by `ops/pcg_matvec.py`
+# (two fused kernels on CUDA). Points follow by back-substitution; a step
 # is kept when the robust cost drops. A call is a `ba.bundle_adjust` span
 # (`utils/profiling.span`) holding `ba.prepare` (the layouts and the
 # starting cost) and, each iteration, `ba.linearize`, `ba.solve` and
@@ -405,6 +406,7 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, bf, n_iters: int = 10, cg_ite
             # Masked observations carry a zero weight: every sum skips them.
             cam_seg, pt_seg = segments(C, prob.obs_cam, prob.obs_mask), segments(P, prob.obs_pt, prob.obs_mask)
             blk_seg = segments(P * C, prob.obs_pt * C + prob.obs_cam, prob.obs_mask) if dense else None
+            mv_plan = None if dense else pcg_matvec.plan(cam_seg, pt_seg)
 
             def total_cost(cam_Tcw, pt_pos):
                 r, _, _, z = _residuals(cam_Tcw, pt_pos, prob, fx, fy, cx, cy, bf)
@@ -451,13 +453,7 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, bf, n_iters: int = 10, cg_ite
                     dx_c = torch.where(torch.isfinite(dx_c), dx_c, 0.0)
                 else:
                     M_inv = _inv6x6(U_d)
-
-                    def S_matvec(x):
-                        x = x * free_cam
-                        y = segment_sum(pt_seg, torch.einsum("oij,oi->oj", Wo, x[prob.obs_cam]))
-                        y = torch.einsum("pij,pj->pi", V_inv, y)
-                        t2 = segment_sum(cam_seg, torch.einsum("oij,oj->oi", Wo, y[prob.obs_pt]))
-                        return (torch.einsum("cij,cj->ci", U_d, x) - t2) * free_cam
+                    S = pcg_matvec.schur(mv_plan, Wo, V_inv, U_d, free_cam)
 
                     def precond(x):
                         return torch.einsum("cij,cj->ci", M_inv, x) * free_cam
@@ -467,7 +463,7 @@ def bundle_adjust(prob: BAProblem, fx, fy, cx, cy, bf, n_iters: int = 10, cg_ite
                     pdir = precond(rr)
                     rz = (rr * pdir).sum()
                     for _ in range(cg_iters):
-                        Sp = S_matvec(pdir)
+                        Sp = pcg_matvec.schur_matvec(S, pdir)
                         denom = (pdir * Sp).sum()
                         alpha = torch.where(torch.abs(denom) > 1e-12, rz / denom, 0.0)
                         dx_c = dx_c + alpha * pdir

@@ -260,3 +260,221 @@ def test_long_route_refuses_wide_rows(cuda):
     out = ss.segment_sum(seg, torch.ones(64, ss.LONG_MAX_K + 1, device=cuda))  # takes the short route
     assert torch.equal(out.cpu(), torch.zeros(2, ss.LONG_MAX_K + 1).index_add_(0, torch.zeros(64, dtype=torch.int64),
                                                                              torch.ones(64, ss.LONG_MAX_K + 1)))
+
+
+# ---------------------------------------------------------------------------
+# The global BA's fused PCG matvec (ops/pcg_matvec.py, csrc/pcg_matvec.cu)
+# ---------------------------------------------------------------------------
+
+
+def _flat_ba(seed, n_cams=100, n_pts=400):
+    """A flat BA problem that takes the PCG branch (6 C > 512): cameras
+    along x, each point seen by 2-6 of the nearest, every fourth camera
+    fixed, camera 7 seen by no row, 2% of the rows and 30 rows of padding
+    (index 0) masked."""
+    from my_orb_slam2_tpu_torch.ops import ba, lie
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, bf = 500.0, 500.0, 320.0, 240.0, 40.0
+    xi = np.concatenate([np.stack([-0.3 * np.arange(n_cams), np.zeros(n_cams), np.zeros(n_cams)], 1),
+                         rng.normal(0, 0.01, (n_cams, 3))], 1)
+    Tcw = lie.se3_exp(torch.tensor(xi, dtype=torch.float64))
+    pts = np.stack([rng.uniform(-2, 0.3 * n_cams + 2, n_pts), rng.uniform(-2, 2, n_pts), rng.uniform(5, 12, n_pts)], 1)
+    rows = []
+    for p in range(n_pts):
+        near = [c for c in np.argsort(np.abs(0.3 * np.arange(n_cams) - pts[p, 0]))[:8] if c != 7]
+        for c in rng.choice(near, rng.integers(2, 7), replace=False):
+            pc = Tcw[c, :3, :3].numpy() @ pts[p] + Tcw[c, :3, 3].numpy()
+            u, v = fx * pc[0] / pc[2] + cx + rng.normal(0, 1), fy * pc[1] / pc[2] + cy + rng.normal(0, 1)
+            ur = u - bf / pc[2] if rng.random() < 0.5 else -1.0
+            rows.append((c, p, u, v, ur, 1.0 / 1.2 ** (2 * rng.integers(0, 4)), rng.random() > 0.02))
+    rows += [(0, 0, 0.0, 0.0, -1.0, 1.0, False)] * 30
+    r = np.array(rows)
+    drift = lie.se3_exp(torch.tensor(rng.normal(0, 0.003, (n_cams, 6))))
+    fixed = np.arange(n_cams) % 4 == 0
+    cam = torch.where(torch.tensor(fixed)[:, None, None], Tcw, drift @ Tcw).float()
+    prob = ba.BAProblem(
+        cam, torch.tensor(fixed), torch.tensor(pts + rng.normal(0, 0.05, pts.shape), dtype=torch.float32),
+        torch.ones(n_pts, dtype=torch.bool), torch.tensor(r[:, 0], dtype=torch.int32),
+        torch.tensor(r[:, 1], dtype=torch.int32), torch.tensor(r[:, 2:4], dtype=torch.float32),
+        torch.tensor(r[:, 4], dtype=torch.float32), torch.tensor(r[:, 5], dtype=torch.float32),
+        torch.tensor(r[:, 6].astype(bool)))
+    return prob, (fx, fy, cx, cy, bf)
+
+
+def _old_matvec(prob):
+    """The PCG step's S x as bundle_adjust composed it before the fused
+    kernels, from the Schur operands and the problem's own indices."""
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    cam_seg = ss.segments(prob.cam_Tcw.shape[0], prob.obs_cam, prob.obs_mask)
+    pt_seg = ss.segments(prob.pt_pos.shape[0], prob.obs_pt, prob.obs_mask)
+
+    def S_matvec(S: pm.Schur, x):
+        x = x * S.free_cam
+        y = ss.segment_sum(pt_seg, torch.einsum("oij,oi->oj", S.Wo, x[prob.obs_cam]))
+        y = torch.einsum("pij,pj->pi", S.V_inv, y)
+        t2 = ss.segment_sum(cam_seg, torch.einsum("oij,oj->oi", S.Wo, y[prob.obs_pt]))
+        return (torch.einsum("cij,cj->ci", S.U_d, x) - t2) * S.free_cam
+
+    return S_matvec
+
+
+def test_pcg_matvec_plain_is_the_old_composition(monkeypatch):
+    # every PCG step of a CPU solve: the plain version against the old
+    # S_matvec on the same operands, bit for bit
+    from my_orb_slam2_tpu_torch.ops import ba
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    prob, cam = _flat_ba(0)
+    assert prob.cam_Tcw.shape[0] * 6 > 512 and not bool(prob.obs_mask.all())
+    old, plain, steps = _old_matvec(prob), pm.schur_matvec, []
+
+    def checked(S, x):
+        got = plain(S, x)
+        steps.append(torch.equal(got, old(S, x)) and bool(got.abs().sum() > 0))
+        return got
+
+    monkeypatch.setattr(pm, "schur_matvec", checked)
+    ba.bundle_adjust(prob, *cam, n_iters=2, cg_iters=8)
+    assert len(steps) == 16 and all(steps)
+
+
+def test_bundle_adjust_pcg_unchanged_on_cpu(monkeypatch):
+    # the whole solve with the fused path's plain version against the same
+    # solve through the old S_matvec: the same bits
+    from my_orb_slam2_tpu_torch.ops import ba
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    prob, cam = _flat_ba(1)
+    got, lam = ba.bundle_adjust(prob, *cam, n_iters=3, cg_iters=16, return_lam=True)
+    monkeypatch.setattr(pm, "schur_matvec", _old_matvec(prob))
+    want, lam_old = ba.bundle_adjust(prob, *cam, n_iters=3, cg_iters=16, return_lam=True)
+    assert float((got.cam_Tcw - prob.cam_Tcw).abs().max()) > 1e-4  # it moved
+    assert torch.equal(got.cam_Tcw, want.cam_Tcw) and torch.equal(got.pt_pos, want.pt_pos)
+    assert torch.equal(lam, lam_old)
+
+
+def _matvec_case(name, seed):
+    """(C, P, camera / point index, live mask, Wo, V_inv, U_d, free_cam, x)
+    as numpy f32 on a layout that breaks a careless kernel."""
+    rng = np.random.default_rng(seed)
+    if name == "one 1658-row camera":  # phase 9's longest camera among 2048 slots, most of them empty
+        C, P, O, n_pad = 2048, 20_000, 40_000, 3000
+        cam = rng.integers(1, 101, O)
+        cam[rng.permutation(O - n_pad)[:1658]] = 0
+        pt = rng.integers(0, 9000, O)
+    elif name == "one-row points":  # every point one row, cameras short of the long route's mean
+        C, P, O, n_pad = 300, 5000, 4600, 100
+        cam = rng.integers(0, 290, O)
+        pt = rng.permutation(P)[:O]
+    elif name == "empty and fixed cameras":  # every other camera fixed, a third of them with no row
+        C, P, O, n_pad = 96, 3000, 12_000, 500
+        cam = rng.choice(np.arange(0, C, 3)[1:], O)
+        pt = rng.integers(0, P - 100, O)
+    else:
+        raise ValueError(name)
+    live = np.arange(O) < O - n_pad
+    cam[~live], pt[~live] = 0, 0
+    free = np.ones(C, np.float32) if name != "empty and fixed cameras" else (np.arange(C) % 2).astype(np.float32)
+    free[0] = 0.0  # the anchor
+    Wo = (rng.normal(size=(O, 6, 3)) * live[:, None, None]).astype(np.float32)
+    V = rng.normal(size=(P, 3, 3)).astype(np.float32)
+    U = rng.normal(size=(C, 6, 6)).astype(np.float32)
+    return C, P, cam, pt, live, Wo, V, U, free[:, None], rng.normal(size=(C, 6)).astype(np.float32)
+
+
+MATVEC_CASES = ["one 1658-row camera", "one-row points", "empty and fixed cameras"]
+
+
+def _cpu_plan(C, P, cam, pt, live):
+    """A plan with the CUDA path's tables, built on the CPU."""
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    def seg(n, idx):
+        order, off = ss.csr(n, torch.tensor(idx), torch.tensor(live))
+        return ss.Segments(n, torch.tensor(idx), order, off, ss.longest_first(off))
+
+    return pm.plan(seg(C, cam), seg(P, pt))
+
+
+def test_pcg_matvec_route_is_chosen_from_shapes():
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    assert pm.route(262_144, 262_144) == "short"  # the benchmark's points: 1 row a slot
+    assert pm.route(262_144, 1536) == "long" and pm.route(262_144, 2048) == "long"  # its cameras, phase 9's
+    assert pm.route(15 * 300, 300) == "short" and pm.route(16 * 300, 300) == "long"
+    for name in MATVEC_CASES:
+        C, P, cam, pt, live, *_ = _matvec_case(name, 0)
+        p = _cpu_plan(C, P, cam, pt, live)
+        for t, n in ((p.points, P), (p.cameras, C)):
+            assert t.long == (pm.route(cam.shape[0], n) == "long")
+            assert (t.longest_first is None) == (not t.long)
+            assert t.nbr.dtype == t.offsets.dtype == torch.int32
+    assert not pm.plan(ss.segments(4, torch.zeros(3)), ss.segments(4, torch.zeros(3))).points  # CPU: no tables
+
+
+@pytest.mark.parametrize("bad", ["cpu x", "float64 x", "x shape", "Wo shape", "V_inv dtype", "U_d device"])
+def test_pcg_matvec_kernel_refuses(bad):
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    C, P, cam, pt, live, Wo, V, U, free, x = (torch.tensor(a) if isinstance(a, np.ndarray) else a
+                                             for a in _matvec_case("empty and fixed cameras", 1))
+    p = _cpu_plan(C, P, cam.numpy(), pt.numpy(), live.numpy())
+    ops = {"Wo": Wo, "V_inv": V, "U_d": U, "free_cam": free}
+    if bad == "Wo shape":
+        ops["Wo"] = Wo[:-1]
+    if bad == "V_inv dtype":
+        ops["V_inv"] = V.double()
+    if bad == "U_d device":
+        ops["U_d"] = U.to("meta")
+    if bad == "x shape":
+        x = x[:, :5]
+    if bad == "float64 x":
+        x = x.double()
+    n0 = pm.schur_matvec.launches
+    with pytest.raises(ValueError):
+        pm._launch(pm.schur(p, **ops), x)
+    assert pm.schur_matvec.launches == n0
+    if bad == "cpu x":  # with the CPU's layouts the same operands take the plain version
+        cpu = pm.plan(ss.segments(C, cam), ss.segments(P, pt))
+        assert torch.equal(pm.schur_matvec(pm.schur(cpu, **ops), x), pm.plain(pm.schur(cpu, **ops), x))
+        assert pm.schur_matvec.launches == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATVEC_CASES)
+@pytest.mark.parametrize("routes", ["by shape", "short, short", "short, long", "long, short", "long, long"])
+def test_pcg_matvec_kernels_match_plain_and_repeat(cuda, case, routes):
+    # Tolerance: each row's 3- or 6-term product is a chain of fused
+    # multiply-adds on the card and the CPU einsum's own rounding here, a
+    # few ulps apart; the sums take the same rows in the same order. So the
+    # kernels stay within 64 u (u = 2^-24) of the terms' magnitude, S x
+    # taken with every operand's absolute value and the subtraction an add.
+    from my_orb_slam2_tpu_torch.ops import pcg_matvec as pm
+
+    C, P, cam, pt, live, Wo, V, U, free, x = _matvec_case(case, 2)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    p = pm.plan(ss.segments(C, t(cam), t(live)), ss.segments(P, t(pt), t(live)))
+    if routes != "by shape":  # each pass forced to a route
+        for side, seg, r in zip(("points", "cameras"), (p.pt_seg, p.cam_seg), routes.split(", ")):
+            lg = r == "long"
+            p = p._replace(**{side: getattr(p, side)._replace(long=lg, longest_first=seg.longest_first.int() if lg
+                                                              else None)})
+    S = pm.schur(p, t(Wo), t(V), t(U), t(free))
+    n0 = pm.schur_matvec.launches
+    a, b = pm.schur_matvec(S, t(x)), pm.schur_matvec(S, t(x))
+    torch.cuda.synchronize()
+    assert pm.schur_matvec.launches == n0 + 4
+    assert torch.equal(a, b)
+    cpu = pm.plan(ss.segments(C, torch.tensor(cam)), ss.segments(P, torch.tensor(pt)))
+    want = pm.plain(pm.schur(cpu, *map(torch.tensor, (Wo, V, U, free))), torch.tensor(x))
+    W_a, V_a, U_a = (torch.tensor(np.abs(v)) for v in (Wo, V, U))
+    free_t, cam_t, pt_t = torch.tensor(free), torch.tensor(cam), torch.tensor(pt)
+    x_a = torch.tensor(np.abs(x)) * free_t
+    y_a = torch.einsum("pij,pj->pi", V_a, torch.zeros(P, 3).index_add_(0, pt_t, torch.einsum("oij,oi->oj", W_a,
+                                                                                              x_a[cam_t])))
+    t_a = torch.zeros(C, 6).index_add_(0, cam_t, torch.einsum("oij,oj->oi", W_a, y_a[pt_t]))
+    scale = (torch.einsum("cij,cj->ci", U_a, x_a) + t_a) * free_t
+    assert bool(((a.cpu() - want).abs() <= 64 * 2.0 ** -24 * scale).all())
+    assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
